@@ -45,6 +45,7 @@ these, the noise-optimized plans are expected to avoid them entirely.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any
 
 import numpy as np
@@ -508,22 +509,29 @@ class MockBackend(_BackendBase):
     the exact same noise/ops as the BFV path.  The paper-scale profile
     (n=32768, k=30 limbs) is the default.
 
-    `kernel_reduce=True` (the data half of `sum_slots` through a
-    rotate-reduce kernel, one launch for all log2(n) doubling stages)
-    raises NotImplementedError until that kernel is ported."""
+    `kernel_reduce=True` routes the data half of `sum_slots` through the
+    rotate_reduce kernel (kernels/rotate_reduce) on `device` — one launch
+    for all log2(n) doubling stages — while charging the identical
+    rotate/add/noise accounting as the looped schedule.  The vectors stay
+    numpy on the host; only the half-rows cross to the device and back.
+    `device` is used by that path alone; on "cuda" it needs a GPU."""
 
     def __init__(self, profile: NoiseProfile | None = None, *,
-                 kernel_reduce: bool = False):
+                 kernel_reduce: bool = False, device="cuda"):
         super().__init__()
         self.profile = profile or paper_profile()
         self.t = self.profile.t
         self.slots = self.profile.n
         self.model = NoiseModel(self.profile)
         self.limbs = self.profile.k    # RNS tower height (model-axis extent)
-        if kernel_reduce:
-            raise NotImplementedError(
-                "kernel_reduce=True needs the rotate_reduce kernel, which "
-                "is not ported yet")
+        self.kernel_reduce = kernel_reduce
+        self.device = torch.device(device)
+        if (kernel_reduce and self.device.type == "cuda"
+                and not torch.cuda.is_available()):
+            raise RuntimeError(
+                "MockBackend(kernel_reduce=True) runs the rotate_reduce "
+                "kernel on the card, but torch sees no CUDA device; pass "
+                "device='cpu' for the plain version")
 
     def _nblocks(self, ct) -> int:
         if ct.vec.ndim != 2:
@@ -738,6 +746,32 @@ class MockBackend(_BackendBase):
         half = self.slots // 2
         vec = np.concatenate([a.vec[..., half:], a.vec[..., :half]], axis=-1)
         return MockCipher(vec, self.model.rotate(a.noise), a.depth, self._live(a))
+
+    def sum_slots(self, a):
+        if not self.kernel_reduce:
+            return super().sum_slots(a)
+        # rotate_reduce kernel: one launch replaces the whole doubling
+        # schedule.  Accounting replays the looped recurrence
+        # v <- add(v, rotate(v)) so stats/noise stay bit-identical.
+        from ..kernels.rotate_reduce.ops import rotate_reduce
+        half = self.slots // 2
+        steps = int(math.log2(half)) + 1            # log rotations + row swap
+        nb = self._nblocks(a)
+        phys = self._nblocks_phys(a)
+        dist = phys > 1
+        self._charge_units("add", steps * nb, steps * phys, dist)
+        self._charge_units("rotate", steps * nb, steps * phys, dist)
+        self._charge_gather(a, mult=steps)     # ledger parity w/ looped path
+        self.stats.launches += 1
+        noise = a.noise
+        for _ in range(steps):
+            noise = self.model.add(noise, self.model.rotate(noise))
+        rows = torch.from_numpy(a.vec.reshape(-1, half)).to(self.device)
+        red = rotate_reduce(rows, self.t).cpu().numpy()   # (2*nb, half)
+        red = red.reshape(-1, 2, half)
+        total = (red[:, 0] + red[:, 1]) % self.t    # (nb, half) full sums
+        vec = np.concatenate([total, total], axis=-1).reshape(a.vec.shape)
+        return MockCipher(vec, noise, self._track_depth(a.depth), self._live(a))
 
 
 Backend = Any  # duck type: BFVBackend | MockBackend

@@ -155,9 +155,8 @@ class Planner:
         """Statically verify `plan` against this planner's state (noise
         abstract interpretation + IR typing + mesh lint, engine/verify.py)
         without executing it.  Returns a VerifyReport."""
-        raise NotImplementedError(
-            "static plan verification arrives with the port of "
-            "engine/verify.py")
+        from .verify import verify_plan
+        return verify_plan(self, plan)
 
     # ------------------------------------------------------------- report
     def report(self, plan: QueryPlan) -> PlanReport:

@@ -1,4 +1,4 @@
-"""Persistent noise-aware mask cache.
+"""Persistent noise-aware mask cache + cross-query workload scheduling.
 
 The CSE store of engine/physical.py used to be a bare dict on one
 Planner: it died with the query mix and — the bug this module fixes —
@@ -36,9 +36,13 @@ additionally cache the per-parent-key join EQ banks of
 nparent EQ circuits.  Invalidation is wired to `Database.load_table`
 through `bind()`: re-loading a table drops every entry derived from it.
 
-The cross-query scheduler `run_workload` compiles whole plans through
-engine/executor.py and joins this module together with the executor.
-See DESIGN.md §8 for the keying/admission/invalidation contract.
+`run_workload(planner, plans)` is the scheduler on top: it compiles a
+*batch* of QueryPlans through one physical pass — every distinct
+comparison circuit of every query in the batch is requested up front and
+evaluated in ONE stacked launch per circuit shape (Q1+Q6+Q12+Q19's EQs
+together, their LTs together) — then executes each plan against the warm
+evaluator.  See DESIGN.md §8 for the keying/admission/invalidation
+contract.
 """
 from __future__ import annotations
 
@@ -293,3 +297,81 @@ class WorkloadCache:
         self.stats.fk_misses += 1
         self._evict(self.fk_banks)
 
+
+# ---------------------------------------------------------------------------
+# Cross-query fused scheduling.
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class WorkloadReport:
+    """One `run_workload` pass: per-query results/reports + the cache and
+    op-stat deltas attributable to the batch."""
+
+    results: list
+    reports: list
+    cache: CacheStats             # delta over this pass
+    launches: int
+    muls: int
+    refreshes: int
+
+    @property
+    def hit_rate(self) -> float:
+        return self.cache.hit_rate
+
+
+def run_workload(planner, plans, validate: bool = True,
+                 verify: bool | None = None) -> WorkloadReport:
+    """Compile a batch of QueryPlans through ONE physical pass.
+
+    Optimized regime: all plans' mask trees are lowered and their atoms
+    requested against a single shared AtomEvaluator before anything runs,
+    so same-shape comparison circuits fuse *between* queries into one
+    stacked launch (the cross-query generalization of per-query fusion).
+    Atoms already in the planner's WorkloadCache are admitted noise-aware
+    and never re-run.  Each plan then executes against the warm evaluator
+    and validates its ExecReport as usual.
+
+    Unoptimized planners (or fuse_masks=False) fall back to sequential
+    per-plan execution — the classical no-sharing baseline.
+
+    `verify` overrides the planner's static-verification knob for this
+    batch only (None keeps the planner default); each plan is verified
+    against the warm cache state right before it executes.
+    """
+    from .executor import Executor
+    bk = planner.bk
+    cache = planner.mask_cache
+    cs0 = cache.stats.clone()
+    s0 = bk.stats.clone()
+    results, reports = [], []
+    prev_verify = getattr(planner, "verify_plans", True)
+    if verify is not None:
+        planner.verify_plans = verify
+    try:
+        if planner.optimized and planner.fuse_masks:
+            ev = planner.evaluator()
+            cache.begin_run()                 # batch derivation epoch
+            compiled = []
+            for plan in plans:
+                ex = Executor(planner, evaluator=ev)
+                cq = ex.compile(plan)
+                ex.request_atoms(cq, ev)
+                compiled.append((ex, cq))
+            ev.flush()                        # one stacked launch per shape
+            for ex, cq in compiled:
+                results.append(ex.run_compiled(cq, validate=validate))
+                reports.append(ex.report)
+        else:
+            for plan in plans:
+                ex = Executor(planner)
+                results.append(ex.run(plan, validate=validate))
+                reports.append(ex.report)
+    finally:
+        planner.verify_plans = prev_verify
+    s1 = bk.stats
+    return WorkloadReport(
+        results=results, reports=reports,
+        cache=cache.stats.delta(cs0),
+        launches=s1.launches - s0.launches,
+        muls=s1.mul - s0.mul,
+        refreshes=s1.refresh - s0.refresh)

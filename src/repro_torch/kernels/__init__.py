@@ -2,7 +2,7 @@
 
 The directory contract
 ----------------------
-Each kernel family `<name>` (ntt, modops) ships
+Each kernel family `<name>` (ntt, modops, rotate_reduce) ships
 
   csrc/<name>.cu      the CUDA C++ source, plain C entry points
                       (`<fn>_launch`) that take raw device pointers and
@@ -40,7 +40,7 @@ import subprocess
 
 import torch
 
-SOURCES = ("ntt", "modops")
+SOURCES = ("ntt", "modops", "rotate_reduce")
 
 _CSRC = os.path.join(os.path.dirname(__file__), "csrc")
 _BUILD = os.path.join(os.path.dirname(__file__), "_build")
@@ -132,12 +132,14 @@ def launch_counts() -> dict[str, int]:
     """Launches made so far by every kernel wrapper, by kernel name."""
     from .modops import modops
     from .ntt import ntt
-    return {**ntt.LAUNCHES, **modops.LAUNCHES}
+    from .rotate_reduce import rotate_reduce
+    return {**ntt.LAUNCHES, **modops.LAUNCHES, **rotate_reduce.LAUNCHES}
 
 
 def reset_launch_counts() -> None:
     from .modops import modops
     from .ntt import ntt
-    for table in (ntt.LAUNCHES, modops.LAUNCHES):
+    from .rotate_reduce import rotate_reduce
+    for table in (ntt.LAUNCHES, modops.LAUNCHES, rotate_reduce.LAUNCHES):
         for key in table:
             table[key] = 0

@@ -204,13 +204,13 @@ def test_under_reporting_noise_model_matches():
 def test_later_slices_raise_not_implemented(tiny_dbs):
     tdb, _ = tiny_dbs
     with pytest.raises(NotImplementedError):
-        tbackend.MockBackend(kernel_reduce=True)
-    with pytest.raises(NotImplementedError):
         tplanner.Planner(tdb, shards=2)
     with pytest.raises(NotImplementedError):
         tplanner.Planner(tdb, limb_shards=2)
     with pytest.raises(NotImplementedError):
-        tplanner.Planner(tdb).verify(tqueries.plan_q6())
+        tqueries.run_via_plan(tplanner.Planner(tdb), tqueries.plan_q6(), shards=2)
+    with pytest.raises(NotImplementedError):
+        tqueries.run_via_plan(tplanner.Planner(tdb), tqueries.plan_q6(), limb_shards=2)
 
 
 def test_refresh_inplace_keeps_aliases_consistent():
