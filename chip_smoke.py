@@ -1,33 +1,48 @@
 #!/usr/bin/env python3
 """GPU smoke run of the PyTorch/CUDA port: builds the CUDA kernels from
 the sources in this checkout, holds each against its plain PyTorch
-version on the card, and drives the port's paths at the paper's
-parameters (n = 32768, t = 65537, 30 RNS limbs, LINEITEM at 32768 rows):
+version on the card, and drives the port's paths: the encrypted query
+engine at the paper's parameters (n = 32768, t = 65537, 30 RNS limbs,
+LINEITEM at 32768 rows) and the LM substrate's serving path at
+gemma2-27b's full width and depth:
 
+  kernels   every kernel against its plain version (the limb kernels and
+            rotate_reduce exactly, flash_attn within 1e-4 in float32 and
+            2e-2 in bfloat16), then timed at its main path's shapes;
+  micro     the quickstart query at micro parameters;
   main      encrypted TPC-H Q6 (the legacy `run_q6` body) on real BFV
             ciphertexts, checked against the numpy oracle;
   workload  TPC-H Q1 through the compiled DAG (`run_via_plan`, static
             verification on) on the same BFV backend and table, and the
             cross-query scheduler `run_workload([Q1, Q6])` on
             `MockBackend(kernel_reduce=True)`, whose `sum_slots` runs the
-            rotate_reduce kernel; every result checked against its oracle.
+            rotate_reduce kernel; every result checked against its oracle;
+  serve     gemma2-27b, 46 layers in bfloat16 from a seeded generator,
+            through `repro_torch.launch.serve.main` (`--dtype bfloat16`):
+            2 prompts of 5120 tokens through the prefill step (every
+            attention layer one flash_attn launch), then 16 greedy decode
+            steps; first a float32 check at full width with 4 layers that
+            decode(prefill(x[:-1]), x[-1]) equals prefill(x)'s last logits.
 
     python3 chip_smoke.py            # needs one NVIDIA GPU and nvcc
 
 Output: one JSON object per line (`env`, `kernel_checks`, `micro`,
-`main`, `workload`, `kernels`),
+`main`, `workload`, `serve_consistency`, `serve`, `kernels`),
 the card's name and power limit as nvidia-smi prints them, and as the
 last line `{"ok": true, "device": {...}}`.  Any failed phase raises, so
 the exit code is non-zero and no result line is printed.
 
 `--phases` runs a subset (env always runs), e.g. `--phases kernels` for a
-first check of a changed kernel.
+first check of a changed kernel or `--phases serve` for the LM path
+alone; the end check then asks launches only of the kernels of the paths
+that ran.
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
 import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -46,11 +61,23 @@ sys.path.insert(0, os.path.join(HERE, "src"))
 # pipes issue at half the float32 instruction rate).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_INT_OPS_PER_S = 67e12 / 4
+PEAK_BF16_FLOPS = 989e12     # dense tensor-core rate
 
 LANES = 5            # Q6's five `lt` atoms run as one stacked batch
 SEED = 0
 # the kernels under every BFV ciphertext operation (core/limbops.py)
 BFV_KERNELS = ("ntt_fwd", "ntt_inv", "mul_mod", "add_mod", "sub_mod")
+# the kernels each driven path must launch
+PATH_KERNELS = {"main": BFV_KERNELS, "workload_q1_bfv": BFV_KERNELS,
+                "workload_mock": ("rotate_reduce",), "serve": ("flash_attn",)}
+# flash_attn against its plain version: the kernel and the dense version
+# sum in different orders (float32), and bfloat16 outputs round at 2^-8
+FLASH_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# q's scale in the softcap cases: scores then reach tens, where a cap of 50
+# bends them, so a kernel without the softcap fails the check
+SOFTCAP_Q_SCALE = 12.0
+# torch.compile's caches (the flex_attention yardstick) stay in the checkout
+BUILD_DIR = os.path.join(HERE, "src", "repro_torch", "kernels", "_build")
 
 
 def emit(tag: str, obj: dict) -> None:
@@ -192,8 +219,10 @@ def phase_kernels(paper) -> dict:
     # comparison with the forward kernel at equal work
     out["ntt_inv"]["ms_at_4500_rows"] = gpu_ms(lambda: lq.intt(digits), reps=10)
     rr_checks, out["rotate_reduce"] = _rotate_reduce_kernel(paper, rng, dev)
+    fa_checks, out["flash_attn"] = _flash_attn_kernel(rng, dev)
     emit("kernel_checks", {"equal_to_plain_version": checks + rr_checks,
-                           "tolerance": "exact (torch.equal)"})
+                           "tolerance": "exact (torch.equal)",
+                           "flash_attn": fa_checks})
     return out
 
 
@@ -237,6 +266,154 @@ def _rotate_reduce_kernel(paper, rng, dev) -> tuple[int, dict]:
     return checks, {**timed[2], "at_368_rows": timed[368]}
 
 
+def _visible_pairs(sq: int, sk: int, causal: bool, window: int | None) -> int:
+    """(query, key) pairs the mask leaves visible, positions from 0."""
+    q = np.arange(sq)
+    hi = np.minimum(q + 1, sk) if causal else np.full(sq, sk)
+    lo = np.maximum(q - window + 1, 0) if window else np.zeros(sq, dtype=np.int64)
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def _attn_inputs(rng, B, H, Hkv, Sq, Sk, D, dtype, dev, *, q_scale=1.0, strided=False):
+    """q (B, H, Sq, D) and k, v (B, Hkv, Sk, D) from a seeded normal, q
+    times `q_scale`.  `strided` gives `.transpose(1, 2)` views of (B, S,
+    heads, D) buffers, the layout `models.layers.attn_scores` passes;
+    otherwise contiguous tensors."""
+    out = []
+    for shape, scale in (((B, Sq, H, D), q_scale), ((B, Sk, Hkv, D), 1.0),
+                         ((B, Sk, Hkv, D), 1.0)):
+        x = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32) * np.float32(scale))
+        x = x.to(dev, dtype).transpose(1, 2)
+        out.append(x if strided else x.contiguous())
+    return out
+
+
+def _check_close(got, exp, what) -> float:
+    """Raise unless flash_attn's result is within FLASH_TOL of its plain
+    version's; returns the measured max |got - exp|."""
+    torch.cuda.synchronize()
+    err = float((got.float() - exp.float()).abs().max())
+    if not err <= FLASH_TOL[got.dtype]:
+        raise AssertionError(f"flash_attn disagrees with its plain version at {what}: "
+                             f"max |diff| {err} > {FLASH_TOL[got.dtype]}")
+    return err
+
+
+def _flex_attention_call(q, k, v, kw):
+    """One PyTorch call computing flash_attn's function with a softcap:
+    `flex_attention` under `torch.compile`, the softcap as its score_mod
+    and the causal (and window) mask as a block mask built here, outside
+    the returned call.  A yardstick only: the port never calls it."""
+    from torch.nn.attention.flex_attention import create_block_mask, flex_attention
+
+    cap, window = kw["softcap"], kw.get("window")
+
+    def score_mod(score, b, h, q_idx, kv_idx):
+        return cap * torch.tanh(score / cap)
+
+    def mask_mod(b, h, q_idx, kv_idx):
+        keep = q_idx >= kv_idx
+        if window is not None:
+            keep = keep & (q_idx - kv_idx < window)
+        return keep
+
+    block_mask = create_block_mask(mask_mod, None, None, q.shape[2], k.shape[2],
+                                   device=q.device)
+    flex = torch.compile(flex_attention, dynamic=False)
+    return lambda: flex(q, k, v, score_mod=score_mod, block_mask=block_mask, enable_gqa=True)
+
+
+def _flash_attn_kernel(rng, dev) -> tuple[dict, dict]:
+    """flash_attn against its plain version (`mha_ref`, dense float32) over
+    causal / window / softcap / non-causal Sq != Sk, float32 and bfloat16,
+    D in {64, 96, 128, 256}, GQA ratios 1, 2 and 12, a ragged length and
+    rows the window leaves without a key, each with contiguous inputs and
+    with the strided views the serving path passes; then timed at
+    gemma2-27b's prefill shape (B=2, H=32, Hkv=16, S=5120, D=128, bf16)
+    for a global and a local layer beside `flex_attention`, and at
+    starcoder2-3b's (H=24, Hkv=2), causal with no softcap, beside
+    `scaled_dot_product_attention`."""
+    from repro_torch.kernels.flash_attn.ops import mha
+    from repro_torch.kernels.flash_attn.ref import mha_ref
+
+    cases = [  # (B, H, Hkv, Sq, Sk, D, kwargs)
+        (2, 4, 2, 256, 256, 128, dict(causal=True)),
+        (1, 4, 4, 320, 320, 64, dict(causal=True, window=64)),
+        (2, 4, 2, 256, 256, 96, dict(causal=True, softcap=50.0)),
+        (1, 12, 1, 200, 200, 256, dict(causal=True, window=96, softcap=50.0)),
+        (1, 4, 2, 130, 300, 128, dict(causal=False)),
+        (1, 2, 1, 300, 100, 64, dict(causal=False, window=50)),   # rows >= 149 see no key
+        (1, 32, 16, 1000, 1000, 128, dict(causal=True, window=256, softcap=50.0)),
+    ]
+    errs, softcap_effect = {}, float("inf")
+    for dtype in (torch.float32, torch.bfloat16):
+        worst = 0.0
+        for B, H, Hkv, Sq, Sk, D, kw in cases:
+            for strided in (False, True):
+                # softcap cases scale q so that |scores| reach the cap's order
+                q, k, v = _attn_inputs(rng, B, H, Hkv, Sq, Sk, D, dtype, dev, strided=strided,
+                                       q_scale=SOFTCAP_Q_SCALE if "softcap" in kw else 1.0)
+                exp = mha_ref(q, k, v, **kw)
+                what = f"{(B, H, Hkv, Sq, Sk, D)} {kw} {dtype} strided={strided}"
+                worst = max(worst, _check_close(mha(q, k, v, **kw), exp, what))
+                if "softcap" in kw:
+                    # a kernel that left the softcap out must fail this check
+                    uncapped = mha_ref(q, k, v, **dict(kw, softcap=None))
+                    effect = float((uncapped.float() - exp.float()).abs().max())
+                    if not effect > 5 * FLASH_TOL[dtype]:
+                        raise AssertionError(f"softcap changes the result by only {effect} "
+                                             f"at {what}: the check cannot see it")
+                    softcap_effect = min(softcap_effect, effect)
+        errs[str(dtype).replace("torch.", "")] = worst
+    checks = {"cases": 4 * len(cases), "layouts": ["contiguous", "(B, S, H, D) transposed"],
+              "max_abs_err": errs,
+              "tolerance": {str(k).replace("torch.", ""): v for k, v in FLASH_TOL.items()},
+              "tolerance_reason": "summation order (float32); bfloat16 output rounding",
+              "softcap_q_scale": SOFTCAP_Q_SCALE,
+              "softcap_effect_min_abs": softcap_effect}
+
+    def timed(B, H, Hkv, S, D, kw, library=False):
+        # the layout the serving path passes: views of (B, S, heads, D)
+        q, k, v = _attn_inputs(rng, B, H, Hkv, S, S, D, torch.bfloat16, dev, strided=True)
+        exp = mha_ref(q, k, v, **kw)
+        err = _check_close(mha(q, k, v, **kw), exp,
+                           f"main-path shape {(B, H, Hkv, S, D)} {kw}")
+        pairs = _visible_pairs(S, S, kw.get("causal", True), kw.get("window"))
+        flops = 4 * D * pairs * B * H
+        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+        t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+        rec = {"shape": {"B": B, "H": H, "Hkv": Hkv, "S": S, "D": D, "dtype": "bfloat16"},
+               "mask": kw, "visible_pairs_per_head": pairs, "max_abs_err": err,
+               "ms": gpu_ms(lambda: mha(q, k, v, **kw), reps=5, inner=2),
+               "plain_ms": gpu_ms(lambda: mha_ref(q, k, v, **kw), reps=3, inner=1, warmup=1),
+               "bound_ms": max(t_ops, t_bytes),
+               "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+               "library_ms": None}
+        if "softcap" in kw:
+            t0 = clock()
+            call = _flex_attention_call(q, k, v, kw)
+            lib_err = _check_close(call(), exp, f"flex_attention at {(B, H, Hkv, S, D)} {kw}")
+            rec["library_compile_s"] = clock() - t0
+            rec["library_ms"] = gpu_ms(call, reps=5, inner=2)
+            rec["library_max_abs_err"] = lib_err
+            rec["library_call"] = ("torch.compile(flex_attention)(score_mod=softcap, "
+                                   "block_mask=causal/window, enable_gqa=True)")
+        elif library:
+            rep = H // Hkv
+            kr = k.repeat_interleave(rep, dim=1)
+            vr = v.repeat_interleave(rep, dim=1)
+            sdpa = torch.nn.functional.scaled_dot_product_attention
+            rec["library_ms"] = gpu_ms(lambda: sdpa(q, kr, vr, is_causal=True), reps=5, inner=2)
+            rec["library_call"] = "scaled_dot_product_attention(is_causal=True), KV heads repeated"
+        return rec
+
+    g = dict(causal=True, softcap=50.0)
+    rec = timed(2, 32, 16, 5120, 128, g)
+    rec["at_local_layer"] = timed(2, 32, 16, 5120, 128, dict(g, window=4096))
+    rec["at_starcoder2_causal"] = timed(2, 24, 2, 5120, 128, dict(causal=True), library=True)
+    return checks, rec
+
+
 # ------------------------------------------------------------------- micro
 def phase_micro() -> None:
     """The quickstart query at micro parameters through the port."""
@@ -275,7 +452,8 @@ def phase_micro() -> None:
 
 # -------------------------------------------------------------------- main
 def _profile_summary(prof, wall_s: float) -> dict:
-    """Device time by kernel name from a torch.profiler run of the query."""
+    """Device time by kernel name from a torch.profiler run of a query or
+    a serving stage."""
     rows = []
     for ev in prof.key_averages():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
@@ -513,6 +691,190 @@ def workload_mock() -> dict:
     return launches
 
 
+# ------------------------------------------------------------------- serve
+SERVE_DEVICE = "cuda"
+SERVE_ARCH = "gemma2-27b"
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 2, 5120, 16
+CONSISTENCY_LAYERS, CONSISTENCY_PROMPT = 4, 4608
+
+
+def serve_consistency() -> dict:
+    """decode(prefill(x[:-1]), x[-1]) against prefill(x)'s last logits at
+    gemma2-27b's full width with 4 layers (2 local, 2 global), float32 with
+    TF32 off, one 4608-token prompt — past the 4096 window, so the local
+    layers mask and trim.  The prefills run flash_attn, the decode the
+    dense path: this holds the kernel against the dense lowering at the
+    card's shapes, within tests/test_models.py's rtol = atol = 2e-3."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    from repro_torch.train import steps
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(get_config(SERVE_ARCH), n_layers=CONSISTENCY_LAYERS)
+    gen = torch.Generator(device=SERVE_DEVICE).manual_seed(SEED)
+    params = lm.init_params(gen, cfg, torch.float32, SERVE_DEVICE)
+    toks = serve.make_batch(cfg, 1, CONSISTENCY_PROMPT, seed=SEED + 1,
+                            device=SERVE_DEVICE)["tokens"]
+    prefill, decode = steps.make_prefill_step(cfg), steps.make_decode_step(cfg)
+    kernels.reset_launch_counts()
+    full, _ = prefill(params, {"tokens": toks})
+    _, caches = prefill(params, {"tokens": toks[:, :-1]})
+    after_prefills = kernels.launch_counts()["flash_attn"]
+    dec, caches = decode(params, caches, {"tokens": toks[:, -1:]}, pos=CONSISTENCY_PROMPT - 1)
+    after_decode = kernels.launch_counts()["flash_attn"]
+    err = float((dec - full).abs().max())
+    close = bool(torch.allclose(dec, full, rtol=2e-3, atol=2e-3))
+    res = {"arch": SERVE_ARCH, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+           "dtype": "float32", "tf32": False, "prompt": CONSISTENCY_PROMPT,
+           "max_abs_diff": err, "max_abs_logit": float(full.abs().max()),
+           "rtol": 2e-3, "atol": 2e-3, "allclose": close,
+           "flash_attn_launches": {"prefills": after_prefills,
+                                   "decode": after_decode - after_prefills},
+           "cache_positions": {"local": caches["units"][0]["k"].shape[2],
+                               "global": caches["units"][1]["k"].shape[2]}}
+    emit("serve_consistency", res)
+    if not close or not torch.isfinite(full).all():
+        raise AssertionError(f"decode after prefill disagrees with the prefill: {res}")
+    if after_prefills != 2 * cfg.n_layers or after_decode != after_prefills:
+        raise AssertionError(f"flash_attn launches {res['flash_attn_launches']}: expected "
+                             f"{cfg.n_layers} per prefill and 0 in decode")
+    return res
+
+
+SERVE_ARGV = ["--arch", SERVE_ARCH, "--batch", str(SERVE_BATCH), "--prompt-len",
+              str(SERVE_PROMPT), "--gen", str(SERVE_GEN), "--dtype", "bfloat16"]
+
+
+def _serve_main(on_generate, on_step):
+    """`serve.main(SERVE_ARGV)` on the card, as a user runs it, with
+    `serve.generate` wrapped so that `on_generate(params)` runs once the
+    parameters and the batch are made, just before the prefill.  Returns
+    the generated tokens and the seconds from the call to the prefill."""
+    from repro_torch.launch import serve
+
+    orig_generate = serve.generate
+    setup = {}
+
+    def generate(params, *args, **kwargs):
+        setup["s"] = clock() - t0
+        on_generate(params)
+        return orig_generate(params, *args, **kwargs)
+
+    serve.generate = generate
+    try:
+        t0 = clock()
+        out = serve.main(SERVE_ARGV, device=SERVE_DEVICE, on_step=on_step)
+    finally:
+        serve.generate = orig_generate
+    return out, setup["s"]
+
+
+def _serve_profile() -> None:
+    """The serving run again under torch.profiler, one profiler for the
+    prefill and one for the decode steps: device time by kernel, busy and
+    idle share of each, as a `serve_profile` line."""
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    profs, walls = {"prefill": profile(activities=acts)}, {}
+    mark = [0.0]
+
+    def on_generate(params):
+        mark[0] = clock()
+        profs["prefill"].start()
+
+    def on_step(stage, logits, caches):
+        if stage == "prefill":
+            walls["prefill"] = clock() - mark[0]
+            profs["prefill"].stop()
+            profs["decode"] = profile(activities=acts)
+            mark[0] = clock()
+            profs["decode"].start()
+
+    _serve_main(on_generate, on_step)
+    walls["decode"] = clock() - mark[0]
+    profs["decode"].stop()
+    emit("serve_profile", {stage: _profile_summary(prof, walls[stage])
+                           for stage, prof in profs.items()})
+
+
+def phase_serve(profile: bool = False) -> dict:
+    """gemma2-27b at full width and depth in bfloat16 through
+    `serve.main(SERVE_ARGV)`: init in place from a seeded generator, 2 x
+    5120-token prefill, 16 greedy decode steps, timed through its
+    `on_step` hook ("init" is the time from the call to the prefill:
+    argument parsing, `init_params` and `make_batch`).  With `profile`,
+    the run is repeated under
+    torch.profiler afterwards.  Returns the launch counts of the measured
+    run."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+
+    serve_consistency()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config(SERVE_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    held_before = torch.cuda.memory_allocated()
+    steps_s, fa_after, finite, seen = [], [], [], {}
+    mark = [0.0]
+
+    def on_generate(params):
+        seen["param_bytes"] = sum(t.numel() * t.element_size() for t in lm.tree_leaves(params))
+        kernels.reset_launch_counts()
+        mark[0] = clock()
+
+    def on_step(stage, logits, caches):
+        steps_s.append((stage, clock() - mark[0]))
+        fa_after.append(kernels.launch_counts()["flash_attn"])
+        finite.append(bool(torch.isfinite(logits).all()))
+        seen["cache_len"] = {"local": caches["units"][0]["k"].shape[2],
+                             "global": caches["units"][1]["k"].shape[2]}
+        mark[0] = clock()
+
+    out, init_s = _serve_main(on_generate, on_step)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    prefill_s = steps_s[0][1]
+    decode_s = [t for stage, t in steps_s[1:]]
+    cache_len, param_bytes = seen["cache_len"], seen["param_bytes"]
+    res = {
+        "arch": SERVE_ARCH, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+        "d_ff": cfg.d_ff, "vocab": cfg.vocab, "dtype": "bfloat16",
+        "params": lm.param_count(cfg), "param_bytes": param_bytes,
+        "batch": SERVE_BATCH, "prompt": SERVE_PROMPT, "decode_steps": SERVE_GEN,
+        "seconds": {"init": init_s, "prefill": prefill_s, "decode_steps": decode_s,
+                    "decode_step_median": float(np.median(decode_s))},
+        "prefill_tokens_per_s": SERVE_BATCH * SERVE_PROMPT / prefill_s,
+        "decode_tokens_per_s": SERVE_BATCH / float(np.median(decode_s)),
+        "flash_attn_launches": {"prefill": fa_after[0], "decode": fa_after[-1] - fa_after[0]},
+        "kernel_launches": launches,
+        "cache_positions": cache_len,
+        "logits_finite": all(finite),
+        "generated_first_prompt": out[0].tolist(),
+        "device_bytes_held_before": held_before,
+        "peak_device_bytes": torch.cuda.max_memory_allocated(),
+    }
+    emit("serve", res)
+    if not all(finite):
+        raise AssertionError("serve: non-finite logits")
+    if res["flash_attn_launches"] != {"prefill": cfg.n_layers, "decode": 0}:
+        raise AssertionError(f"serve: flash_attn launched {res['flash_attn_launches']}, "
+                             f"expected {cfg.n_layers} in prefill and 0 in decode")
+    if cache_len != {"local": cfg.window, "global": SERVE_PROMPT + SERVE_GEN}:
+        raise AssertionError(f"serve: cache positions {cache_len}")
+    if tuple(out.shape) != (SERVE_BATCH, SERVE_GEN + 1):
+        raise AssertionError(f"serve: generated {tuple(out.shape)}")
+    if profile:
+        del out
+        _serve_profile()
+    return launches
+
+
 KERNEL_META = {
     "ntt_fwd": ("src/repro_torch/kernels/csrc/ntt.cu", "src/repro/kernels/ntt/ntt.py:68"),
     "ntt_inv": ("src/repro_torch/kernels/csrc/ntt.cu", "src/repro/kernels/ntt/ntt.py:92"),
@@ -521,17 +883,20 @@ KERNEL_META = {
     "sub_mod": ("src/repro_torch/kernels/csrc/modops.cu", "src/repro/kernels/modops/modops.py:69"),
     "rotate_reduce": ("src/repro_torch/kernels/csrc/rotate_reduce.cu",
                       "src/repro/kernels/rotate_reduce/rotate_reduce.py:29"),
+    "flash_attn": ("src/repro_torch/kernels/csrc/flash_attn.cu",
+                   "src/repro/kernels/flash_attn/flash_attn.py:74"),
 }
-PHASES = ("kernels", "micro", "main", "workload")
+PHASES = ("kernels", "micro", "main", "workload", "serve")
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
-                    help=f"comma-separated subset of {','.join(PHASES)}")
+                    help=f"comma-separated subset of {','.join(PHASES)} (serve: "
+                         f"gemma2-27b prefill and decode on the flash_attn kernel)")
     ap.add_argument("--profile", action="store_true",
-                    help="run the main phase under torch.profiler and report "
-                         "device time by kernel")
+                    help="run the main phase under torch.profiler, and the serve "
+                         "phase once more under it, and report device time by kernel")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
     unknown = phases - set(PHASES)
@@ -539,6 +904,8 @@ def main() -> None:
         raise SystemExit(f"unknown phases: {sorted(unknown)}")
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device: torch.cuda.is_available() is False")
+    os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR", os.path.join(BUILD_DIR, "inductor"))
+    os.environ.setdefault("TRITON_CACHE_DIR", os.path.join(BUILD_DIR, "triton"))
 
     from repro_torch.core.params import paper_params
 
@@ -556,8 +923,13 @@ def main() -> None:
         if bk is None:           # reuse main's keys and table when main ran
             bk, db, _ = load_paper_lineitem(paper)
         by_path["workload_q1_bfv"] = workload_q1_bfv(bk, db)
-        del bk, db
+        bk = db = None
         by_path["workload_mock"] = workload_mock()
+    if "serve" in phases:
+        bk = db = None           # the BFV phases' keys and table hold ~33 GB
+        gc.collect()
+        torch.cuda.empty_cache()
+        by_path["serve"] = phase_serve(profile=args.profile)
 
     records = []
     for name, (source, replaces) in KERNEL_META.items():
@@ -567,9 +939,10 @@ def main() -> None:
                                     for path, counts in by_path.items()}}
         rec.update(timings.get(name, {}))
         records.append(rec)
-    idle = [r["name"] for r in records if r["launches"] <= 0]
-    if by_path and idle:
-        raise AssertionError(f"no path that ran launched the {idle} kernel(s)")
+    idle = sorted({f"{name} on {path}" for path, counts in by_path.items()
+                   for name in PATH_KERNELS[path] if counts.get(name, 0) <= 0})
+    if idle:
+        raise AssertionError(f"kernels of a path that ran were never launched: {idle}")
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,12 +2,13 @@
 
 The directory contract
 ----------------------
-Each kernel family `<name>` (ntt, modops, rotate_reduce) ships
+Each kernel family `<name>` (ntt, modops, rotate_reduce, flash_attn) ships
 
   csrc/<name>.cu      the CUDA C++ source, plain C entry points
                       (`<fn>_launch`) that take raw device pointers and
                       the stream, launch, and return `cudaGetLastError()`;
-                      shared device functions live in csrc/u32.cuh
+                      the modular kernels' shared device functions
+                      live in csrc/u32.cuh
   <name>/<name>.py    the launch wrappers: check device, dtype, shape and
                       contiguity, allocate the output, launch on PyTorch's
                       current stream, raise on a non-zero return, and add
@@ -40,7 +41,7 @@ import subprocess
 
 import torch
 
-SOURCES = ("ntt", "modops", "rotate_reduce")
+SOURCES = ("ntt", "modops", "rotate_reduce", "flash_attn")
 
 _CSRC = os.path.join(os.path.dirname(__file__), "csrc")
 _BUILD = os.path.join(os.path.dirname(__file__), "_build")
@@ -128,18 +129,21 @@ def on_device(device):
     return torch.cuda.device(device)
 
 
-def launch_counts() -> dict[str, int]:
-    """Launches made so far by every kernel wrapper, by kernel name."""
+def _tables() -> tuple[dict[str, int], ...]:
+    """Every kernel wrapper's `LAUNCHES` table."""
+    from .flash_attn import flash_attn
     from .modops import modops
     from .ntt import ntt
     from .rotate_reduce import rotate_reduce
-    return {**ntt.LAUNCHES, **modops.LAUNCHES, **rotate_reduce.LAUNCHES}
+    return (ntt.LAUNCHES, modops.LAUNCHES, rotate_reduce.LAUNCHES, flash_attn.LAUNCHES)
+
+
+def launch_counts() -> dict[str, int]:
+    """Launches made so far by every kernel wrapper, by kernel name."""
+    return {name: n for table in _tables() for name, n in table.items()}
 
 
 def reset_launch_counts() -> None:
-    from .modops import modops
-    from .ntt import ntt
-    from .rotate_reduce import rotate_reduce
-    for table in (ntt.LAUNCHES, modops.LAUNCHES, rotate_reduce.LAUNCHES):
+    for table in _tables():
         for key in table:
             table[key] = 0
