@@ -7,8 +7,9 @@ LINEITEM at 32768 rows) and the LM substrate's serving path at
 gemma2-27b's full width and depth:
 
   kernels   every kernel against its plain version (the limb kernels and
-            rotate_reduce exactly, flash_attn within 1e-4 in float32 and
-            2e-2 in bfloat16), then timed at its main path's shapes;
+            rotate_reduce exactly, both NTTs at every n = 2 .. 32768,
+            flash_attn within 1e-4 in float32 and 2e-2 in bfloat16 on
+            its tile edges too), then timed at its main path's shapes;
   micro     the quickstart query at micro parameters;
   main      encrypted TPC-H Q6 (the legacy `run_q6` body) on real BFV
             ciphertexts, checked against the numpy oracle;
@@ -35,7 +36,8 @@ the exit code is non-zero and no result line is printed.
 `--phases` runs a subset (env always runs), e.g. `--phases kernels` for a
 first check of a changed kernel or `--phases serve` for the LM path
 alone; the end check then asks launches only of the kernels of the paths
-that ran.
+that ran.  `--profile` adds device time by kernel (`profile`,
+`serve_profile` lines).
 """
 from __future__ import annotations
 
@@ -139,10 +141,38 @@ def _check_equal(name, got, exp, what) -> int:
     return err
 
 
+def _ntt_every_n(paper, rng, dev) -> int:
+    """ntt_fwd and ntt_inv against their plain versions at every n =
+    2^1 .. 2^15 the wrappers accept, on three limbs of each of the
+    paper's bases (30-bit Q, 31-bit P; their primes are 1 mod 2^16, so
+    they serve every such n): random rows, rows of q - 1 and zero rows,
+    and intt(ntt(x)) == x."""
+    from repro_torch.core.limbops import LimbOps, force_ref
+    from repro_torch.core.params import _make_ntt_tables
+
+    checks = 0
+    for log_n in range(1, 16):
+        n = 1 << log_n
+        for base, tables in (("Q", paper.Q), ("P", paper.P)):
+            ops = LimbOps(_make_ntt_tables(list(tables.primes[:3]), n), device=dev)
+            q = ops.q[:, None]
+            x = torch.cat([_rand_limbs(rng, ops.primes, (2,), n, dev),
+                           (q - 1).expand(3, n)[None], torch.zeros_like(q).expand(3, n)[None]])
+            what = f"n={n} base {base}"
+            fwd = ops.ntt(x)
+            with force_ref():
+                fwd_ref, inv_ref = ops.ntt(x), ops.intt(x)
+            _check_equal("ntt_fwd", fwd, fwd_ref, what)
+            _check_equal("ntt_inv", ops.intt(x), inv_ref, what)
+            _check_equal("ntt_inv(ntt_fwd)", ops.intt(fwd), x, what)
+            checks += 3
+    return checks
+
+
 def phase_kernels(paper) -> dict:
     """Bit-equality of every kernel with its plain version at n in
-    {128, 4096, 32768} on the Q (30-bit) and P (31-bit) bases, then
-    timings at the main path's shapes."""
+    {128, 4096, 32768} on the Q (30-bit) and P (31-bit) bases and of the
+    NTTs at every n, then timings at the main path's shapes."""
     from repro_torch.core.limbops import LimbOps, force_ref
     from repro_torch.core.params import make_params
 
@@ -175,6 +205,8 @@ def phase_kernels(paper) -> dict:
                 _check_equal("ntt_inv", ops.intt(x), inv_ref, what)
                 _check_equal("ntt_inv(ntt_fwd)", ops.intt(fwd), x, what)
                 checks += 3
+
+    checks += _ntt_every_n(paper, rng, dev)
 
     # timings at the shapes Q6 gives the kernels (5 lanes, k = 30, n = 32768)
     k, n = paper.k, paper.n
@@ -218,6 +250,20 @@ def phase_kernels(paper) -> dict:
     # the inverse NTT also at the key-switch batch (rows = 5*30*30), for
     # comparison with the forward kernel at equal work
     out["ntt_inv"]["ms_at_4500_rows"] = gpu_ms(lambda: lq.intt(digits), reps=10)
+    # the forward NTT also at the multiply's shape, one (lanes, k) limb
+    # set (bfv.py `_mul_tensor_impl`: eight such launches per ct x ct)
+    got = lq.ntt(lane)
+    with force_ref():
+        exp = lq.ntt(lane)
+        plain_ms = gpu_ms(lambda: lq.ntt(lane), reps=3, inner=2, warmup=1)
+    t_bytes = 2 * lane.numel() * e8 / PEAK_BYTES_PER_S * 1e3
+    t_ops = lane.numel() // 2 * log_n * bfly_ops / PEAK_INT_OPS_PER_S * 1e3
+    out["ntt_fwd"]["at_150_rows"] = {
+        "shape": list(lane.shape),
+        "max_abs_err": _check_equal("ntt_fwd", got, exp, f"shape {tuple(lane.shape)}"),
+        "ms": gpu_ms(lambda: lq.ntt(lane), reps=10, inner=20), "plain_ms": plain_ms,
+        "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": None}
     rr_checks, out["rotate_reduce"] = _rotate_reduce_kernel(paper, rng, dev)
     fa_checks, out["flash_attn"] = _flash_attn_kernel(rng, dev)
     emit("kernel_checks", {"equal_to_plain_version": checks + rr_checks,
@@ -323,28 +369,50 @@ def _flex_attention_call(q, k, v, kw):
     return lambda: flex(q, k, v, score_mod=score_mod, block_mask=block_mask, enable_gqa=True)
 
 
-def _flash_attn_kernel(rng, dev) -> tuple[dict, dict]:
-    """flash_attn against its plain version (`mha_ref`, dense float32) over
-    causal / window / softcap / non-causal Sq != Sk, float32 and bfloat16,
-    D in {64, 96, 128, 256}, GQA ratios 1, 2 and 12, a ragged length and
-    rows the window leaves without a key, each with contiguous inputs and
-    with the strided views the serving path passes; then timed at
-    gemma2-27b's prefill shape (B=2, H=32, Hkv=16, S=5120, D=128, bf16)
-    for a global and a local layer beside `flex_attention`, and at
-    starcoder2-3b's (H=24, Hkv=2), causal with no softcap, beside
-    `scaled_dot_product_attention`."""
+# flash_attn's checks: (B, H, Hkv, Sq, Sk, D, kwargs)
+FLASH_CASES = [
+    (2, 4, 2, 256, 256, 128, dict(causal=True)),
+    (1, 4, 4, 320, 320, 64, dict(causal=True, window=64)),
+    (2, 4, 2, 256, 256, 96, dict(causal=True, softcap=50.0)),
+    (1, 12, 1, 200, 200, 256, dict(causal=True, window=96, softcap=50.0)),
+    (1, 4, 2, 130, 300, 128, dict(causal=False)),
+    (1, 2, 1, 300, 100, 64, dict(causal=False, window=50)),   # rows >= 149 see no key
+    (1, 32, 16, 1000, 1000, 128, dict(causal=True, window=256, softcap=50.0)),
+]
+# the edges of the tensor-core kernel's tiles (64 query rows; 64 keys, past
+# D = 128 32 or 16): lengths 1, 15, 17, 127, 129 and 65 (one past a query
+# tile), every head dim the configs use, GQA 8 (qwen2-72b's 64 / 8), and
+# window edges inside a tile
+FLASH_EDGE_CASES = [
+    (1, 2, 1, 1, 1, 16, dict(causal=True)),
+    (1, 2, 2, 15, 15, 64, dict(causal=True, softcap=50.0)),
+    (2, 2, 1, 17, 17, 96, dict(causal=True, window=5)),
+    (1, 4, 2, 127, 127, 128, dict(causal=True)),
+    (1, 2, 1, 129, 129, 256, dict(causal=True, softcap=50.0)),
+    (1, 2, 2, 65, 65, 64, dict(causal=True, window=40)),
+    (1, 2, 1, 1, 129, 128, dict(causal=False)),
+    (1, 2, 1, 129, 15, 64, dict(causal=False)),
+    (1, 2, 1, 17, 127, 16, dict(causal=True)),
+    (1, 2, 1, 127, 17, 96, dict(causal=True, softcap=50.0)),
+    (1, 4, 2, 129, 129, 16, dict(causal=True, softcap=50.0)),
+    (1, 16, 2, 129, 129, 128, dict(causal=True, softcap=50.0)),
+    (1, 2, 1, 300, 300, 128, dict(causal=True, window=100)),
+    (1, 2, 1, 200, 130, 256, dict(causal=False, window=70)),
+]
+
+
+def _flash_attn_checks(dev) -> dict:
+    """flash_attn against its plain version (`mha_ref`, dense float32) on
+    FLASH_CASES and FLASH_EDGE_CASES, float32 and bfloat16, each with
+    contiguous inputs and with the strided views the serving path passes;
+    the softcap cases scale q by SOFTCAP_Q_SCALE and check that leaving
+    the softcap out would fail the comparison.  Inputs from their own
+    seeded generator."""
     from repro_torch.kernels.flash_attn.ops import mha
     from repro_torch.kernels.flash_attn.ref import mha_ref
 
-    cases = [  # (B, H, Hkv, Sq, Sk, D, kwargs)
-        (2, 4, 2, 256, 256, 128, dict(causal=True)),
-        (1, 4, 4, 320, 320, 64, dict(causal=True, window=64)),
-        (2, 4, 2, 256, 256, 96, dict(causal=True, softcap=50.0)),
-        (1, 12, 1, 200, 200, 256, dict(causal=True, window=96, softcap=50.0)),
-        (1, 4, 2, 130, 300, 128, dict(causal=False)),
-        (1, 2, 1, 300, 100, 64, dict(causal=False, window=50)),   # rows >= 149 see no key
-        (1, 32, 16, 1000, 1000, 128, dict(causal=True, window=256, softcap=50.0)),
-    ]
+    rng = np.random.default_rng(SEED)
+    cases = FLASH_CASES + FLASH_EDGE_CASES
     errs, softcap_effect = {}, float("inf")
     for dtype in (torch.float32, torch.bfloat16):
         worst = 0.0
@@ -365,12 +433,26 @@ def _flash_attn_kernel(rng, dev) -> tuple[dict, dict]:
                                              f"at {what}: the check cannot see it")
                     softcap_effect = min(softcap_effect, effect)
         errs[str(dtype).replace("torch.", "")] = worst
-    checks = {"cases": 4 * len(cases), "layouts": ["contiguous", "(B, S, H, D) transposed"],
-              "max_abs_err": errs,
-              "tolerance": {str(k).replace("torch.", ""): v for k, v in FLASH_TOL.items()},
-              "tolerance_reason": "summation order (float32); bfloat16 output rounding",
-              "softcap_q_scale": SOFTCAP_Q_SCALE,
-              "softcap_effect_min_abs": softcap_effect}
+    return {"cases": 4 * len(cases), "layouts": ["contiguous", "(B, S, H, D) transposed"],
+            "edge_cases": len(FLASH_EDGE_CASES),
+            "max_abs_err": errs,
+            "tolerance": {str(k).replace("torch.", ""): v for k, v in FLASH_TOL.items()},
+            "tolerance_reason": "summation order (float32); bfloat16 output rounding",
+            "softcap_q_scale": SOFTCAP_Q_SCALE,
+            "softcap_effect_min_abs": softcap_effect}
+
+
+def _flash_attn_kernel(rng, dev) -> tuple[dict, dict]:
+    """`_flash_attn_checks`, then flash_attn timed at gemma2-27b's prefill
+    shape (B=2, H=32, Hkv=16, S=5120, D=128, bf16) for a global and a
+    local layer beside `flex_attention`, for a global layer without the
+    softcap (what the softcap costs) and at starcoder2-3b's (H=24,
+    Hkv=2), causal with no softcap, both beside
+    `scaled_dot_product_attention`."""
+    from repro_torch.kernels.flash_attn.ops import mha
+    from repro_torch.kernels.flash_attn.ref import mha_ref
+
+    checks = _flash_attn_checks(dev)
 
     def timed(B, H, Hkv, S, D, kw, library=False):
         # the layout the serving path passes: views of (B, S, heads, D)
@@ -410,6 +492,8 @@ def _flash_attn_kernel(rng, dev) -> tuple[dict, dict]:
     g = dict(causal=True, softcap=50.0)
     rec = timed(2, 32, 16, 5120, 128, g)
     rec["at_local_layer"] = timed(2, 32, 16, 5120, 128, dict(g, window=4096))
+    rec["at_global_layer_no_softcap"] = timed(2, 32, 16, 5120, 128, dict(causal=True),
+                                              library=True)
     rec["at_starcoder2_causal"] = timed(2, 24, 2, 5120, 128, dict(causal=True), library=True)
     return checks, rec
 
@@ -469,6 +553,13 @@ def _profile_summary(prof, wall_s: float) -> dict:
             "kernel_events": int(sum(r[2] for r in rows)),
             "top": [{"name": k[:200], "ms": round(ms, 2), "calls": int(c)}
                     for k, ms, c in rows[:25]]}
+
+
+def ntt_launches_by_rows() -> dict:
+    """ntt_fwd and ntt_inv launches since the last reset, by row count."""
+    from repro_torch.kernels.ntt import ntt
+    return {fn: {str(rows): n for rows, n in sorted(by_rows.items())}
+            for fn, by_rows in ntt.LAUNCHES_BY_ROWS.items()}
 
 
 def clock() -> float:
@@ -542,6 +633,7 @@ def phase_main(paper, profile: bool = False):
 
     exp = queries.oracle_q6(db)
     launches = kernels.launch_counts()
+    by_rows = ntt_launches_by_rows()
     res = {
         "params": {"n": paper.n, "t": paper.t, "k": paper.k},
         "lineitem_rows": li.nrows, "blocks_per_column": li.nblocks,
@@ -550,6 +642,7 @@ def phase_main(paper, profile: bool = False):
         "op_stats": dataclasses.asdict(bk.stats),
         "noise_budget_bits_at_decrypt": round(budget_bits, 2),
         "kernel_launches": launches,
+        "ntt_launches_by_rows": by_rows,
         "peak_device_bytes": torch.cuda.max_memory_allocated(),
     }
     emit("main", res)
@@ -616,6 +709,7 @@ def workload_q1_bfv(bk, db) -> dict:
         bk.decrypt = orig_decrypt
     query_s = clock() - t0
     launches = kernels.launch_counts()
+    by_rows = ntt_launches_by_rows()
     rep, vrep = seen["report"], seen["verify"]
     rep.validate()
     exp = queries.oracle_q1(db)
@@ -635,6 +729,7 @@ def workload_q1_bfv(bk, db) -> dict:
         "noise_budget_bits_at_last_decrypt": round(rep.decrypt_headrooms[-1], 2),
         "min_noise_budget_bits": round(min(rep.decrypt_headrooms), 2),
         "kernel_launches": launches,
+        "ntt_launches_by_rows": by_rows,
         "peak_device_bytes": torch.cuda.max_memory_allocated(),
     }
     emit("workload", res)

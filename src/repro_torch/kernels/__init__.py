@@ -7,8 +7,8 @@ Each kernel family `<name>` (ntt, modops, rotate_reduce, flash_attn) ships
   csrc/<name>.cu      the CUDA C++ source, plain C entry points
                       (`<fn>_launch`) that take raw device pointers and
                       the stream, launch, and return `cudaGetLastError()`;
-                      the modular kernels' shared device functions
-                      live in csrc/u32.cuh
+                      shared device code lives in csrc/*.cuh
+                      (u32.cuh: modular arithmetic)
   <name>/<name>.py    the launch wrappers: check device, dtype, shape and
                       contiguity, allocate the output, launch on PyTorch's
                       current stream, raise on a non-zero return, and add
@@ -67,11 +67,14 @@ def nvcc_path() -> str:
                            "the CUDA kernels cannot be built here")
 
 
-def _target(name: str) -> tuple[str, str]:
-    """(source path, library path keyed by the sources' content)."""
-    src = os.path.join(_CSRC, f"{name}.cu")
+def _target(name: str, csrc: str = _CSRC) -> tuple[str, str]:
+    """(source path, library path keyed by the content of the source and
+    of every header in csrc/, so a changed header gives a new library)."""
+    src = os.path.join(csrc, f"{name}.cu")
+    headers = sorted(f for f in os.listdir(csrc) if f.endswith(".cuh"))
     h = hashlib.sha256()
-    for path in (src, os.path.join(_CSRC, "u32.cuh")):
+    for path in (src, *(os.path.join(csrc, f) for f in headers)):
+        h.update(os.path.basename(path).encode() + b"\0")
         with open(path, "rb") as f:
             h.update(f.read())
     return src, os.path.join(_BUILD, f"lib{name}-{h.hexdigest()[:16]}.so")
@@ -144,6 +147,9 @@ def launch_counts() -> dict[str, int]:
 
 
 def reset_launch_counts() -> None:
+    from .ntt import ntt
     for table in _tables():
         for key in table:
             table[key] = 0
+    for by_rows in ntt.LAUNCHES_BY_ROWS.values():
+        by_rows.clear()

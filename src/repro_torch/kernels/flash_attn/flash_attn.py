@@ -6,11 +6,15 @@ Replaces `repro/kernels/flash_attn/flash_attn.py`: `flash_attention`
 Bound on the card: operations — 4·D FLOPs per visible (query, key) pair
 against q, k, v and o each moved once.  The Pallas kernel walks a
 sequential kv grid axis with m, l and the accumulator in VMEM scratch;
-here one CTA owns a (batch·head, 64-query) tile and loops over 64-key
-tiles staged in shared memory, keeping m, l and the accumulator in
-registers, and skips key tiles that the causal or window mask hides
-whole.  The products run on CUDA-core float32 FMAs for both input types
-(source note in csrc/flash_attn.cu).
+here one CTA owns a (batch·head, 64-query) tile and loops over key tiles
+staged in shared memory, keeping m, l and the accumulator in registers,
+and skips key tiles that the causal or window mask hides whole.  Two
+kernels behind one entry, chosen by dtype: bfloat16 runs both products
+on Hopper's warpgroup tensor-core instructions (wgmma; Q, K and V tiles
+in bf16 in 128-byte swizzled shared memory, K/V by cp.async into a
+double-buffered ring, P kept in registers as bf16 hi + lo fragments);
+float32 keeps float32 FMAs on the CUDA cores, whose 1e-4 tolerance rules
+out bf16 or TF32 products (source note in csrc/flash_attn.cu).
 
 `LAUNCHES` counts kernel launches, one per call that reaches the card.
 """
@@ -29,6 +33,15 @@ MAX_HEAD_DIM = 256
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_TC_ROWS = 64          # query rows per CTA of the bfloat16 kernel
+
+
+def _aligned16(t: torch.Tensor) -> torch.Tensor:
+    """`t` itself when every row it holds starts on a 16-byte boundary
+    (base and (batch, head, seq) strides), else a contiguous copy."""
+    if t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:3]):
+        return t
+    return t.contiguous()
 
 
 def _lib():
@@ -74,6 +87,11 @@ def flash_attn_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"window={window} must be >= 1 or None")
     if softcap is not None and not softcap > 0:
         raise ValueError(f"softcap={softcap} must be > 0 or None")
+    if q.dtype == torch.bfloat16:
+        if -(-Sq // _TC_ROWS) > 65535:
+            raise ValueError(f"Sq={Sq} must be at most {65535 * _TC_ROWS} in bfloat16")
+        # the tensor-core kernel stages rows by 16-byte copies
+        q, k, v = (_aligned16(t) for t in (q, k, v))
     out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device).transpose(1, 2)
     if out.numel() == 0:
         return out

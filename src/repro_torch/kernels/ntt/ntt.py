@@ -4,15 +4,18 @@ Replaces `repro/kernels/ntt/ntt.py`: `ntt_fwd_pallas` (`_fwd_kernel`) and
 `ntt_inv_pallas` (`_inv_kernel`).
 
 Bound on the card: bytes.  A row is read once and written once in the
-engine's int64 layout — 16 bytes per coefficient against ~8 integer
+engine's int64 layout — 16 bytes per coefficient against ~10 integer
 operations for each of the log2(n) butterflies it takes part in — plus
-the (k, n) twiddle tables, which every batch element shares.  The design
-keeps each row in one thread block's shared memory for all stages, so
-global memory sees exactly those two passes, reads and writes int64
-directly instead of casting to 32 bits first, and indexes the tables by
-limb (row % k) so they are never tiled to the batch.
+the (k, n) twiddle tables, which every batch element shares.  Reads and
+writes are int64 directly, with no cast pass, and the tables are
+indexed by limb (row % k) so they are never tiled to the batch.  The
+forward kernel runs two blocks per row, one per half after the first
+stage, with 32 values per thread in registers and five stages per
+shared-memory exchange; the inverse kernel keeps a row in one block's
+shared memory with a barrier per stage (source note in csrc/ntt.cu).
 
-`LAUNCHES` counts kernel launches, one per call that reaches the card.
+`LAUNCHES` counts kernel launches, one per call that reaches the card;
+`LAUNCHES_BY_ROWS` counts the same launches by their row count.
 """
 from __future__ import annotations
 
@@ -24,6 +27,9 @@ from .. import library
 from .. import on_device as _on
 
 LAUNCHES = {"ntt_fwd": 0, "ntt_inv": 0}
+# the same launches by row count ({rows: launches}), so that a kernel's
+# cost on a path can be read at the shapes the path gives it
+LAUNCHES_BY_ROWS: dict[str, dict[int, int]] = {"ntt_fwd": {}, "ntt_inv": {}}
 
 # a row of n 32-bit residues must fit one block's dynamic shared memory
 _SMEM_LIMIT = 232448
@@ -77,6 +83,7 @@ def ntt_fwd_cuda(a: torch.Tensor, tabs) -> torch.Tensor:
                                  tabs.psi32.data_ptr(), tabs.psi_shoup.data_ptr(),
                                  tabs.q32.data_ptr(), rows, tabs.k, log_n, stream)
     LAUNCHES["ntt_fwd"] += 1
+    LAUNCHES_BY_ROWS["ntt_fwd"][rows] = LAUNCHES_BY_ROWS["ntt_fwd"].get(rows, 0) + 1
     _raise_on(err, "ntt_fwd")
     return out
 
@@ -96,5 +103,6 @@ def ntt_inv_cuda(a: torch.Tensor, tabs) -> torch.Tensor:
                                  tabs.ninv_shoup.data_ptr(), rows, tabs.k, log_n,
                                  stream)
     LAUNCHES["ntt_inv"] += 1
+    LAUNCHES_BY_ROWS["ntt_inv"][rows] = LAUNCHES_BY_ROWS["ntt_inv"].get(rows, 0) + 1
     _raise_on(err, "ntt_inv")
     return out

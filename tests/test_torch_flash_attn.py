@@ -122,6 +122,47 @@ def cuda_device():
     return torch.device("cuda")
 
 
+# the edges of the bfloat16 kernel's tiles (64 query rows; 64 keys, past
+# D = 128 32 or 16): lengths 1, 15, 17, 127, 129 and 65 (one past a query tile),
+# the head dims the configs use, GQA 8, window edges inside a tile;
+# chip_smoke.py's FLASH_EDGE_CASES
+EDGE_CASES = [
+    (1, 2, 1, 1, 1, 16, dict(causal=True)),
+    (1, 2, 2, 15, 15, 64, dict(causal=True, softcap=50.0)),
+    (2, 2, 1, 17, 17, 96, dict(causal=True, window=5)),
+    (1, 4, 2, 127, 127, 128, dict(causal=True)),
+    (1, 2, 1, 129, 129, 256, dict(causal=True, softcap=50.0)),
+    (1, 2, 2, 65, 65, 64, dict(causal=True, window=40)),
+    (1, 2, 1, 1, 129, 128, dict(causal=False)),
+    (1, 2, 1, 129, 15, 64, dict(causal=False)),
+    (1, 2, 1, 17, 127, 16, dict(causal=True)),
+    (1, 2, 1, 127, 17, 96, dict(causal=True, softcap=50.0)),
+    (1, 4, 2, 129, 129, 16, dict(causal=True, softcap=50.0)),
+    (1, 16, 2, 129, 129, 128, dict(causal=True, softcap=50.0)),
+    (1, 2, 1, 300, 300, 128, dict(causal=True, window=100)),
+    (1, 2, 1, 200, 130, 256, dict(causal=False, window=70)),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("strided", [False, True], ids=["contiguous", "bshd"])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("case", EDGE_CASES, ids=[f"e{i}" for i in range(len(EDGE_CASES))])
+def test_cuda_kernel_matches_plain_version_at_tile_edges(cuda_device, case, dtype, strided):
+    B, H, Hkv, Sq, Sk, D, kwargs = case
+    tol = {"float32": 1e-4, "bfloat16": 2e-2}[dtype]
+    _, (q, k, v) = _qkv(B, H, Hkv, Sq, Sk, D, dtype, seed=4)
+    if "softcap" in kwargs:
+        q = q * 12
+    if strided:      # (B, S, heads, D) buffers, the layout the models pass
+        q, k, v = (t.transpose(1, 2).contiguous().transpose(1, 2) for t in (q, k, v))
+    q, k, v = q.to(cuda_device), k.to(cuda_device), v.to(cuda_device)
+    got = ops.mha(q, k, v, **kwargs)
+    exp = mha_ref(q, k, v, **kwargs)
+    torch.cuda.synchronize()
+    assert float((got.float() - exp.float()).abs().max()) <= tol
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", list(DTYPES))
 def test_cuda_kernel_matches_plain_version(cuda_device, dtype):
@@ -136,3 +177,113 @@ def test_cuda_kernel_matches_plain_version(cuda_device, dtype):
         exp = mha_ref(q, k, v, **kwargs)
         torch.cuda.synchronize()
         assert float((got.float() - exp.float()).abs().max()) <= tol
+
+
+# ---------------------------------------------------------------- budget
+# chip_smoke.py's softcap cases (B, H, Hkv, Sq, Sk, D, kwargs), q scaled by 12
+SOFTCAP_CASES = [
+    (2, 4, 2, 256, 256, 96, dict(causal=True, softcap=50.0)),
+    (1, 12, 1, 200, 200, 256, dict(causal=True, window=96, softcap=50.0)),
+    (1, 32, 16, 1000, 1000, 128, dict(causal=True, window=256, softcap=50.0)),
+]
+SOFTCAP_Q_SCALE = 12.0
+BF16_TOL = 2e-2          # chip_smoke.py's FLASH_TOL for bfloat16, unchanged
+NEG_INF = -1e30
+
+
+def _bf16(x):
+    return x.to(torch.bfloat16).float()
+
+
+def _tensor_core_replay(q, k, v, *, causal=True, window=None, softcap=None, split=True):
+    """The bfloat16 kernel's arithmetic, tile by tile, in float32 on the
+    CPU: 64-query tiles, key tiles of 64 (past D = 128: 32, 16 with a
+    softcap) between the kernel's skip bounds, the mask only on the tiles
+    the kernel masks, logits in the log2 domain (the softcap's tanh formed
+    from exp2 and a reciprocal), the online softmax, and P rounded to bf16
+    as the kernel feeds it to the tensor cores — hi + lo (`split`) or
+    once — with l summed from the same rounded parts.  q (B, H, Sq, D),
+    k, v (B, Hkv, Sk, D) bf16 -> (B, H, Sq, D) bf16."""
+    B, H, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    DP = -(-D // 64) * 64
+    BM, BN = 64, (64 if DP <= 128 else 16 if softcap else 32)
+    scale, log2e = D ** -0.5, 1.4426950408889634
+    k = k.repeat_interleave(H // Hkv, dim=1).float()
+    v = v.repeat_interleave(H // Hkv, dim=1).float()
+    out = torch.zeros(B, H, Sq, D)
+    for q0 in range(0, Sq, BM):
+        rows = torch.arange(q0, min(q0 + BM, Sq))
+        q_last = int(rows[-1])
+        k_end = min(Sk, q_last + 1) if causal else Sk
+        k_begin = max(0, q0 - window + 1) // BN * BN if window else 0
+        qt = q[:, :, rows].float()
+        m = torch.full((B, H, len(rows), 1), NEG_INF)
+        l = torch.zeros((B, H, len(rows), 1))
+        acc = torch.zeros((B, H, len(rows), D))
+        for k0 in range(k_begin, k_end, BN):
+            keys = torch.arange(k0, k0 + BN)
+            kt = keys.clamp(max=Sk - 1)
+            s = torch.einsum("bhqd,bhkd->bhqk", qt, k[:, :, kt])
+            if softcap:      # tanh(y) = 1 - 2 / (1 + 2^(2 log2e y)), as the kernel forms it
+                post = softcap * log2e
+                s = post * (1 - 2 / (1 + torch.exp2(s * (2 * log2e * scale / softcap))))
+            else:
+                s = s * (scale * log2e)
+            need_mask = (k0 + BN > Sk or (causal and k0 + BN - 1 > q0)
+                         or (window and q_last - k0 >= window))
+            if need_mask:
+                ok = keys[None, :] < Sk
+                if causal:
+                    ok = ok & (rows[:, None] >= keys[None, :])
+                if window:
+                    ok = ok & (rows[:, None] - keys[None, :] < window)
+                s = torch.where(ok, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            alpha = torch.exp2(m - m_new)
+            p = torch.where(s > NEG_INF, torch.exp2(s - m_new), 0.0)
+            hi = _bf16(p)
+            p = hi + _bf16(p - hi) if split else hi
+            l = l * alpha + p.sum(-1, keepdim=True)
+            acc = acc * alpha + torch.einsum("bhqk,bhkd->bhqd", p, v[:, :, kt])
+            m = m_new
+        out[:, :, rows] = acc / torch.where(l == 0, 1.0, l)
+    return out.to(torch.bfloat16)
+
+
+def _softcap_inputs(case, seed):
+    B, H, Hkv, Sq, Sk, D, kw = case
+    rng = np.random.default_rng(seed)
+    q = torch.from_numpy(rng.standard_normal((B, H, Sq, D), dtype=np.float32)
+                         * np.float32(SOFTCAP_Q_SCALE)).to(torch.bfloat16)
+    k, v = (torch.from_numpy(rng.standard_normal((B, Hkv, Sk, D), dtype=np.float32))
+            .to(torch.bfloat16) for _ in range(2))
+    return q, k, v, kw
+
+
+@pytest.mark.parametrize("seed", range(3))
+@pytest.mark.parametrize("case", SOFTCAP_CASES, ids=["d96", "d256-window", "gqa-window"])
+def test_bf16_p_split_fits_the_tolerance(case, seed):
+    """The numerical budget of the bfloat16 kernel, where there is no card:
+    P fed to the tensor cores as bf16 hi + lo keeps the output within the
+    unchanged 2e-2 of `mha_ref` on chip_smoke.py's softcap cases."""
+    q, k, v, kw = _softcap_inputs(case, seed)
+    exp = mha_ref(q, k, v, **kw)
+    got = _tensor_core_replay(q, k, v, **kw)
+    assert float((got.float() - exp.float()).abs().max()) <= BF16_TOL
+
+
+def test_bf16_p_rounded_once_breaks_the_tolerance():
+    """Why the kernel splits P: rounded once to bf16 (2^-9 relative), P
+    moves O by ~1e-3, which flips the bf16 rounding of an output above 4
+    by one ulp (2^-5 = 0.03125 > 2e-2) — on 3 of these 10 draws of the
+    largest softcap case (seeds 5, 6 and 8), where hi + lo stays inside."""
+    case = SOFTCAP_CASES[2]
+    worst = {True: 0.0, False: 0.0}
+    for seed in range(10):
+        q, k, v, kw = _softcap_inputs(case, seed)
+        exp = mha_ref(q, k, v, **kw).float()
+        for split in worst:
+            got = _tensor_core_replay(q, k, v, split=split, **kw).float()
+            worst[split] = max(worst[split], float((got - exp).abs().max()))
+    assert worst[False] > BF16_TOL >= worst[True]

@@ -24,6 +24,7 @@ from repro.kernels import u32 as jax_u32
 from repro_torch.core import ntt as tntt
 from repro_torch.core.mathutil import find_ntt_primes
 from repro_torch.core.params import make_params
+from repro_torch.core.params import _make_ntt_tables as tntt_tables
 from repro_torch.kernels import u32
 from repro_torch.kernels.modops import ops as mod_ops
 from repro_torch.kernels.modops import ref as mod_ref
@@ -240,6 +241,26 @@ def test_build_without_nvcc_raises_and_substitutes_nothing():
         pytest.skip("nvcc is installed here: the build would succeed")
 
 
+@pytest.mark.parametrize("name", ["ntt", "flash_attn"])
+def test_build_key_follows_every_header(tmp_path, name):
+    """A built library is keyed on its source and on every csrc/*.cuh: a
+    changed or added header gives a new library path, so a stale build is
+    never loaded.  No nvcc needed."""
+    import shutil
+    from repro_torch import kernels
+    csrc = tmp_path / "csrc"
+    shutil.copytree(kernels._CSRC, csrc)
+    first = kernels._target(name, str(csrc))[1]
+    assert kernels._target(name, str(csrc))[1] == first          # stable
+    with open(csrc / "u32.cuh", "a") as f:
+        f.write("\n// edited\n")
+    second = kernels._target(name, str(csrc))[1]
+    assert second != first
+    (csrc / "extra.cuh").write_text("#pragma once\n")
+    assert kernels._target(name, str(csrc))[1] not in (first, second)
+    assert kernels._target(name)[0].endswith(f"csrc/{name}.cu")
+
+
 def test_launch_counters_start_at_zero_and_reset():
     from repro_torch import kernels
     from repro_torch.kernels.ntt import ntt as ntt_launch
@@ -282,3 +303,24 @@ def test_cuda_kernels_equal_plain_versions(cuda_device, n, t, k):
                 exp = fn()
             assert torch.equal(got, exp)
         assert torch.equal(ops.intt(ops.ntt(a)), a)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("log_n", range(1, 16))
+def test_cuda_ntt_equals_plain_version_at_every_n(cuda_device, log_n):
+    """Both NTT kernels at every n the wrappers accept, on a 30-bit and a
+    31-bit prime: random rows, rows of q - 1 and zero rows, bit for bit,
+    and intt(ntt(x)) == x."""
+    from repro_torch.core.limbops import LimbOps, force_ref
+    n = 1 << log_n
+    primes = [find_ntt_primes(n, 30, 1)[0], find_ntt_primes(n, 31, 1)[0]]
+    ops = LimbOps(tntt_tables(primes, n), device=cuda_device)
+    q = np.array(primes)[:, None]
+    rng = np.random.default_rng(log_n)
+    a = np.stack([rng.integers(0, q, (2, n)), np.broadcast_to(q - 1, (2, n)),
+                  np.zeros((2, n), dtype=np.int64)])
+    a = torch.from_numpy(np.ascontiguousarray(a)).to(cuda_device)
+    fwd, inv = ops.ntt(a), ops.intt(a)
+    with force_ref():
+        assert torch.equal(fwd, ops.ntt(a)) and torch.equal(inv, ops.intt(a))
+    assert torch.equal(ops.intt(fwd), a)
