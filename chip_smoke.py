@@ -65,6 +65,10 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_INT_OPS_PER_S = 67e12 / 4
 PEAK_BF16_FLOPS = 989e12     # dense tensor-core rate
 
+# the spin kernel's cycles per second of host issue time it must cover: at
+# least the H100's 1.98 GHz boost clock, so a spin never ends early
+SPIN_CYCLES_PER_S = 2e9
+
 LANES = 5            # Q6's five `lt` atoms run as one stacked batch
 SEED = 0
 # the kernels under every BFV ciphertext operation (core/limbops.py)
@@ -86,16 +90,29 @@ def emit(tag: str, obj: dict) -> None:
     print(json.dumps({tag: obj}), flush=True)
 
 
-def gpu_ms(fn, reps: int, inner: int = 5, warmup: int = 2) -> float:
+def gpu_ms(fn, reps: int, inner: int = 5, warmup: int = 2, queued: bool = True) -> float:
     """Median milliseconds of one fn() on the card: CUDA events around
-    `inner` back-to-back calls, divided by `inner`, median over `reps`."""
+    `inner` back-to-back calls, divided by `inner`, median over `reps`.
+
+    `queued`: the calls are queued behind a spin kernel long enough for
+    the host to issue all of them before the card reaches the first, so
+    the time is the card's alone even where one call costs the host more
+    than the card (small kernels behind Python wrappers).  Without it the
+    card waits for the host between calls wherever that is so."""
     for _ in range(warmup):
         fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(inner):
+        fn()
+    issue_s = time.perf_counter() - t0         # the host's time to issue `inner` calls
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if queued:
+            torch.cuda._sleep(int((2 * issue_s + 1e-3) * SPIN_CYCLES_PER_S))
         start.record()
         for _ in range(inner):
             fn()
@@ -169,6 +186,42 @@ def _ntt_every_n(paper, rng, dev) -> int:
     return checks
 
 
+E8 = 8               # bytes per element at the kernel boundary (int64)
+BFLY_OPS = 10        # integer operations per radix-2 butterfly
+
+
+def _ntt_cost(x, n: int, inverse: bool) -> tuple[int, int]:
+    """(bytes, integer operations) an NTT of x's rows must take: each row
+    read and written once in int64, n/2 butterflies per stage, and for the
+    inverse the multiply by n^-1."""
+    ops = x.numel() // 2 * (n.bit_length() - 1) * BFLY_OPS
+    return 2 * x.numel() * E8, ops + (6 * x.numel() if inverse else 0)
+
+
+def _timed(name, fn, x, nbytes: int, nops: int) -> dict:
+    """A kernel's call fn() against its plain version on the same inputs
+    (exact), then its time on the card (`ms`), the time of back-to-back
+    calls that the card waits for the host to issue (`issue_ms`: the
+    wrapper's host cost where it exceeds the kernel's), the plain
+    version's and the bound."""
+    from repro_torch.core.limbops import force_ref
+
+    got = fn()
+    with force_ref():
+        exp = fn()
+    err = _check_equal(name, got, exp, f"shape {tuple(x.shape)}")
+    del got, exp
+    ms = gpu_ms(fn, reps=10, inner=20)
+    issue_ms = gpu_ms(fn, reps=10, inner=20, queued=False)
+    with force_ref():
+        plain_ms = gpu_ms(fn, reps=3, inner=2, warmup=1)
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = nops / PEAK_INT_OPS_PER_S * 1e3
+    return {"shape": list(x.shape), "max_abs_err": err, "ms": ms, "issue_ms": issue_ms,
+            "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": None}
+
+
 def phase_kernels(paper) -> dict:
     """Bit-equality of every kernel with its plain version at n in
     {128, 4096, 32768} on the Q (30-bit) and P (31-bit) bases and of the
@@ -211,59 +264,46 @@ def phase_kernels(paper) -> dict:
     # timings at the shapes Q6 gives the kernels (5 lanes, k = 30, n = 32768)
     k, n = paper.k, paper.n
     lq = LimbOps(paper.Q, device=dev)
+    lp = LimbOps(paper.P, device=dev)
     digits = _rand_limbs(rng, paper.Q.primes, (LANES, k), n, dev)    # key-switch digits
     ksk = _rand_limbs(rng, paper.Q.primes, (k,), n, dev)             # one key half
     lane = _rand_limbs(rng, paper.Q.primes, (LANES,), n, dev)        # one ct component
     ct1 = _rand_limbs(rng, paper.Q.primes, (LANES, 2), n, dev)       # ciphertext payloads
     ct2 = _rand_limbs(rng, paper.Q.primes, (LANES, 2), n, dev)
-    e8 = 8  # bytes per element at the kernel boundary (int64)
-    log_n = n.bit_length() - 1
-    bfly_ops = 10        # integer operations per radix-2 butterfly
     specs = {
-        "ntt_fwd": (lambda: lq.ntt(digits), tuple(digits.shape),
-                    2 * digits.numel() * e8, digits.numel() // 2 * log_n * bfly_ops),
-        "ntt_inv": (lambda: lq.intt(lane), tuple(lane.shape),
-                    2 * lane.numel() * e8, lane.numel() // 2 * log_n * bfly_ops + 6 * lane.numel()),
-        "mul_mod": (lambda: lq.mul(digits, ksk), tuple(digits.shape),
-                    (2 * digits.numel() + ksk.numel()) * e8, 8 * digits.numel()),
-        "add_mod": (lambda: lq.add(ct1, ct2), tuple(ct1.shape),
-                    3 * ct1.numel() * e8, 3 * ct1.numel()),
-        "sub_mod": (lambda: lq.sub(ct1, ct2), tuple(ct1.shape),
-                    3 * ct1.numel() * e8, 3 * ct1.numel()),
+        "ntt_fwd": (lambda: lq.ntt(digits), digits, _ntt_cost(digits, n, inverse=False)),
+        "ntt_inv": (lambda: lq.intt(lane), lane, _ntt_cost(lane, n, inverse=True)),
+        "mul_mod": (lambda: lq.mul(digits, ksk), digits,
+                    ((2 * digits.numel() + ksk.numel()) * E8, 8 * digits.numel())),
+        "add_mod": (lambda: lq.add(ct1, ct2), ct1, (3 * ct1.numel() * E8, 3 * ct1.numel())),
+        "sub_mod": (lambda: lq.sub(ct1, ct2), ct1, (3 * ct1.numel() * E8, 3 * ct1.numel())),
     }
-    out = {}
-    for name, (fn, shape, nbytes, nops) in specs.items():
-        got = fn()
-        with force_ref():
-            exp = fn()
-        err = _check_equal(name, got, exp, f"main-path shape {shape}")
-        del got, exp
-        ms = gpu_ms(fn, reps=10)
-        with force_ref():
-            plain_ms = gpu_ms(fn, reps=3, inner=2, warmup=1)
-        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-        t_ops = nops / PEAK_INT_OPS_PER_S * 1e3
-        out[name] = {"shape": list(shape), "max_abs_err": err, "ms": ms,
-                     "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
-                     "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                     "library_ms": None}
-    # the inverse NTT also at the key-switch batch (rows = 5*30*30), for
-    # comparison with the forward kernel at equal work
-    out["ntt_inv"]["ms_at_4500_rows"] = gpu_ms(lambda: lq.intt(digits), reps=10)
-    # the forward NTT also at the multiply's shape, one (lanes, k) limb
-    # set (bfv.py `_mul_tensor_impl`: eight such launches per ct x ct)
-    got = lq.ntt(lane)
-    with force_ref():
-        exp = lq.ntt(lane)
-        plain_ms = gpu_ms(lambda: lq.ntt(lane), reps=3, inner=2, warmup=1)
-    t_bytes = 2 * lane.numel() * e8 / PEAK_BYTES_PER_S * 1e3
-    t_ops = lane.numel() // 2 * log_n * bfly_ops / PEAK_INT_OPS_PER_S * 1e3
-    out["ntt_fwd"]["at_150_rows"] = {
-        "shape": list(lane.shape),
-        "max_abs_err": _check_equal("ntt_fwd", got, exp, f"shape {tuple(lane.shape)}"),
-        "ms": gpu_ms(lambda: lq.ntt(lane), reps=10, inner=20), "plain_ms": plain_ms,
-        "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": None}
+    out = {name: _timed(name, fn, x, *cost) for name, (fn, x, cost) in specs.items()}
+    # both NTTs also at the other row counts the paths give them
+    # (`ntt_launches_by_rows`): one multiply's limb set is (1 or 5 lanes) x
+    # k rows in Q (k = 30) or P (31), the key-switch digits 4500 rows
+    one = _rand_limbs(rng, paper.Q.primes, (1,), n, dev)
+    one_p = _rand_limbs(rng, paper.P.primes, (1,), n, dev)
+    lane_p = _rand_limbs(rng, paper.P.primes, (LANES,), n, dev)
+    out["ntt_inv"]["at_rows"] = {
+        str(x.numel() // n): _timed("ntt_inv", lambda ops=ops, x=x: ops.intt(x), x,
+                                    *_ntt_cost(x, n, inverse=True))
+        for ops, x in ((lq, one), (lp, one_p), (lp, lane_p), (lq, digits))}
+    out["ntt_fwd"]["at_rows"] = {
+        str(x.numel() // n): _timed("ntt_fwd", lambda x=x: lq.ntt(x), x,
+                                    *_ntt_cost(x, n, inverse=False))
+        for x in (lane, one)}
+    # the pointwise kernels also at the other shapes that carry most of
+    # their launches on Q6 and Q1 (`modops_launches_by_shape`, "rows_a/rows_b")
+    for name, op, per_elem, shapes in (("mul_mod", lq.mul, 8, ((30, 30), (900, 900), (150, 150))),
+                                       ("add_mod", lq.add, 3, ((60, 60),))):
+        out[name]["at_shapes"] = {}
+        for rows, rows_b in shapes:
+            a = _rand_limbs(rng, paper.Q.primes, (rows // k,), n, dev)
+            b = _rand_limbs(rng, paper.Q.primes, (rows_b // k,), n, dev)
+            out[name]["at_shapes"][f"{rows}/{rows_b}"] = _timed(
+                name, lambda op=op, a=a, b=b: op(a, b), a,
+                (2 * a.numel() + b.numel()) * E8, per_elem * a.numel())
     rr_checks, out["rotate_reduce"] = _rotate_reduce_kernel(paper, rng, dev)
     fa_checks, out["flash_attn"] = _flash_attn_kernel(rng, dev)
     emit("kernel_checks", {"equal_to_plain_version": checks + rr_checks,
@@ -562,6 +602,15 @@ def ntt_launches_by_rows() -> dict:
             for fn, by_rows in ntt.LAUNCHES_BY_ROWS.items()}
 
 
+def modops_launches_by_shape() -> dict:
+    """mul_mod, add_mod and sub_mod launches since the last reset, by the
+    row counts of their operands as "rows_a/rows_b" (n = 32768 on the
+    paths), most launched first."""
+    from repro_torch.kernels.modops import modops
+    return {fn: {f"{a}/{b}": n for (a, b), n in sorted(by_shape.items(), key=lambda kv: -kv[1])}
+            for fn, by_shape in modops.LAUNCHES_BY_SHAPE.items()}
+
+
 def clock() -> float:
     torch.cuda.synchronize()
     return time.perf_counter()
@@ -643,6 +692,7 @@ def phase_main(paper, profile: bool = False):
         "noise_budget_bits_at_decrypt": round(budget_bits, 2),
         "kernel_launches": launches,
         "ntt_launches_by_rows": by_rows,
+        "modops_launches_by_shape": modops_launches_by_shape(),
         "peak_device_bytes": torch.cuda.max_memory_allocated(),
     }
     emit("main", res)
@@ -730,6 +780,7 @@ def workload_q1_bfv(bk, db) -> dict:
         "min_noise_budget_bits": round(min(rep.decrypt_headrooms), 2),
         "kernel_launches": launches,
         "ntt_launches_by_rows": by_rows,
+        "modops_launches_by_shape": modops_launches_by_shape(),
         "peak_device_bytes": torch.cuda.max_memory_allocated(),
     }
     emit("workload", res)

@@ -147,9 +147,10 @@ def launch_counts() -> dict[str, int]:
 
 
 def reset_launch_counts() -> None:
+    from .modops import modops
     from .ntt import ntt
     for table in _tables():
         for key in table:
             table[key] = 0
-    for by_rows in ntt.LAUNCHES_BY_ROWS.values():
-        by_rows.clear()
+    for by_shape in (*ntt.LAUNCHES_BY_ROWS.values(), *modops.LAUNCHES_BY_SHAPE.values()):
+        by_shape.clear()

@@ -33,14 +33,56 @@
 //     across threads; the last goes through shared memory once more so
 //     the int64 stores are coalesced too.
 //
-// The inverse kernel is the first design: one block holds a whole row in
-// shared memory for all stages, one barrier per stage.
+// Inverse kernel.  It replaces the TPU's `ntt_inv_pallas` (`_inv_kernel`,
+// repro/kernels/ntt/ntt.py).  What bounds it on the card is integer
+// operations (~2.5 M a row at n = 32768, just above its bytes), and,
+// at the row counts the paths give it (30 or 31, 150 or 155), how few
+// SMs the rows fill: with one block per row a 30-row call ran on 30 of
+// the 132 SMs, for the latency of one row's 15 stages.  Its last stage
+// pairs i with i + n/2, so after 14 stages each half of a row depends on
+// the other and the forward kernel's half rows do not carry over.  The
+// design splits a row across a thread-block cluster instead:
+//
+//   * C = 8 blocks per row, launched as a cluster (cudaLaunchKernelEx,
+//     cudaLaunchAttributeClusterDimension): block c holds the contiguous
+//     chunk [c n/C, (c + 1) n/C) in shared memory, 16 KiB at n = 32768,
+//     and runs the first log2(n / C) stages alone, since they pair
+//     indices inside one chunk.  A 30-row call has 240 blocks, not 30.
+//   * the local stages in registers, E = 16 values per thread, four
+//     stages a round, the window of index bits walking up from bit 0;
+//     padded exchanges (i at i + i / 32) between rounds, stages as
+//     template recursion, each twiddle read once per round through the
+//     read-only path.  The chunk comes in through shared memory, where
+//     the forward kernel reads global memory straight into registers:
+//     a thread's first window is E neighbouring values, so a warp
+//     reading them directly would touch 32 lines per load.
+//   * the last log2(C) stages as one radix-C round across the cluster,
+//     through distributed shared memory: after cluster.sync() block c
+//     takes its n / C^2 columns j, reads the C values j + m n/C from the
+//     C blocks' shared memory (map_shared_rank; neighbouring threads on
+//     neighbouring columns), runs the stages in registers with the C - 1
+//     twiddles every column shares, multiplies by n^-1 and writes C
+//     coalesced int64 outputs; a second cluster.sync() keeps every block
+//     resident until the others have read its chunk.
+//
+// C and E are fixed, the same at every row count: tools/ntt_inv_bench.py
+// on an H100 80GB HBM3 at 700 W timed C = 2, 4, 8 at E = 16 and 32, and
+// C = 8 was the fastest C at every row count the paths launch, E = 16 the
+// fastest E there (ms at 30 / 150 rows: C = 2 0.0259 / 0.0841, C = 4
+// 0.0155 / 0.0631, C = 8 0.0146 / 0.0554 at E = 16; C = 8, E = 32 0.0159
+// / 0.0601; the one-block-per-row kernel 0.0642 / 0.2092).  At 4500 rows,
+// which no path gives the inverse, E = 32 is 2 % faster.  64 registers,
+// no spill at C = 8, E = 16.  Every n from 2 to 32768 goes through the
+// one kernel, with C = min(8, n / 2) and E = min(16, n / C).
 //
 // Plain C interface for ctypes: every entry takes raw device pointers and
 // the stream, launches, and returns cudaGetLastError().
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <cstdint>
 #include "u32.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -48,11 +90,21 @@ extern __shared__ uint32_t row_smem[];
 
 constexpr int kFwdMaxLogE = 5;                 // E = 32 values per thread
 constexpr int kFwdMaxThreads = (32768 / 2) >> kFwdMaxLogE;
+// The inverse's blocks per row and values per thread (source note): C = 8,
+// the portable cluster maximum, and E = 16, where the chunk allows them
+constexpr int kInvLogC = 3;
+constexpr int kInvLogE = 4;
+
+// threads of an inverse block at n = 32768 (at most 1024)
+constexpr int inv_max_threads(int log_e, int log_c) {
+  return ((32768 >> log_c) >> log_e) < 1024 ? ((32768 >> log_c) >> log_e) : 1024;
+}
 
 __host__ __device__ __forceinline__ int padded(int i) { return i + (i >> 5); }
 
-// local index (within the half row) of value c of thread `tid` when the
-// round's window of LE bits starts at bit `lo`
+// local index (within the forward kernel's half row, the inverse's chunk)
+// of value c of thread `tid` when the round's window of LE bits starts at
+// bit `lo`
 template <int LE>
 __device__ __forceinline__ int window_index(int tid, int lo, int c) {
   return (((tid >> lo) << (lo + LE)) | (c << lo)) | (tid & ((1 << lo) - 1));
@@ -155,54 +207,140 @@ ntt_fwd_kernel(const int64_t* __restrict__ in, int64_t* __restrict__ out,
   for (int i = tid; i < nh; i += blockDim.x) dst[i] = (int64_t)row_smem[padded(i)];
 }
 
-__global__ void ntt_inv_kernel(const int64_t* __restrict__ in,
-                               int64_t* __restrict__ out,
-                               const uint32_t* __restrict__ ipsi,
-                               const uint32_t* __restrict__ ipsi_shoup,
-                               const uint32_t* __restrict__ qtab,
-                               const uint32_t* __restrict__ ninv,
-                               const uint32_t* __restrict__ ninv_shoup,
-                               int k, int log_n) {
-  const int n = 1 << log_n;
-  const int half = n >> 1;
-  const size_t row = blockIdx.x;
-  const int limb = (int)(row % (size_t)k);
-  const uint32_t q = qtab[limb];
-  const uint32_t* w_tab = ipsi + (size_t)limb * n;
-  const uint32_t* ws_tab = ipsi_shoup + (size_t)limb * n;
-  const int64_t* src = in + row * n;
-  int64_t* dst = out + row * n;
-
-  for (int i = threadIdx.x; i < n; i += blockDim.x) row_smem[i] = (uint32_t)src[i];
-  __syncthreads();
-
-  for (int s = 0; s < log_n; ++s) {
-    const int t_len = 1 << s;
-    const int h = n >> (s + 1);
-    for (int b = threadIdx.x; b < half; b += blockDim.x) {
-      const int j = b >> s;
-      const int i = b & (t_len - 1);
-      const int lo = (j << (s + 1)) + i;
-      const int hi = lo + t_len;
-      const uint32_t u = row_smem[lo];
-      const uint32_t v = row_smem[hi];
-      row_smem[lo] = u32::add_mod(u, v, q);
-      row_smem[hi] = u32::shoup_mulmod(u32::sub_mod(u, v, q), w_tab[h + j], ws_tab[h + j], q);
+// The butterflies of one inverse stage of a round: window bit D (chunk
+// bit p = lo + D) when p >= bot, the lowest bit not yet done.  Chunk bit
+// p is stage p of the row's transform (the row index's bit p); its
+// twiddle index is n / 2^(p + 1) + (row index >> (p + 1)), where the row
+// index of a chunk one is chunk * 2^lc + local.  Ascending D, as the
+// stages run; a template argument, so every trip count is constant.
+template <int LE, int D>
+__device__ __forceinline__ void inv_stages(uint32_t (&x)[1 << LE], int lo, int bot, int lc,
+                                           int log_n, int chunk, int hi_part,
+                                           const uint32_t* __restrict__ w_tab,
+                                           const uint32_t* __restrict__ ws_tab, uint32_t q) {
+  if constexpr (D < LE) {
+    constexpr int E = 1 << LE;
+    const int p = lo + D;
+    if (p >= bot) {
+      const int wbase = (1 << (log_n - p - 1)) + (chunk << (lc - p - 1)) + (hi_part >> (p + 1));
+#pragma unroll
+      for (int g = 0; g < (E >> (D + 1)); ++g) {
+        const uint32_t w = __ldg(w_tab + wbase + g);
+        const uint32_t ws = __ldg(ws_tab + wbase + g);
+#pragma unroll
+        for (int r = 0; r < (1 << D); ++r) {
+          constexpr int half = 1 << D;
+          const int c = (g << (D + 1)) | r;
+          const uint32_t u = x[c];
+          const uint32_t v = x[c + half];
+          x[c] = u32::add_mod(u, v, q);
+          x[c + half] = u32::shoup_mulmod(u32::sub_mod(u, v, q), w, ws, q);
+        }
+      }
     }
-    __syncthreads();
+    inv_stages<LE, D + 1>(x, lo, bot, lc, log_n, chunk, hi_part, w_tab, ws_tab, q);
   }
-
-  const uint32_t ni = ninv[limb];
-  const uint32_t nis = ninv_shoup[limb];
-  for (int i = threadIdx.x; i < n; i += blockDim.x)
-    dst[i] = (int64_t)u32::shoup_mulmod(row_smem[i], ni, nis, q);
 }
 
-int block_threads(int n) {
-  int t = n / 2;
-  if (t > 1024) t = 1024;
-  if (t < 32) t = 32;
-  return t;
+// Grid: C * rows blocks in clusters of C = 2^LOGC, cluster r on row r,
+// block c of it on the chunk [c n/C, (c + 1) n/C); blockDim = n / (C E)
+// threads, each holding E = 2^LE values.
+template <int LE, int LOGC>
+__global__ void __launch_bounds__(inv_max_threads(LE, LOGC))
+ntt_inv_kernel(const int64_t* __restrict__ in, int64_t* __restrict__ out,
+               const uint32_t* __restrict__ ipsi, const uint32_t* __restrict__ ipsi_shoup,
+               const uint32_t* __restrict__ qtab, const uint32_t* __restrict__ ninv,
+               const uint32_t* __restrict__ ninv_shoup, int k, int log_n) {
+  constexpr int E = 1 << LE;
+  constexpr int C = 1 << LOGC;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int lc = log_n - LOGC;                 // index bits of a chunk
+  const int nc = 1 << lc;
+  const int nt = nc >> LE;                     // = blockDim.x
+  const int tid = threadIdx.x;
+  const int chunk = (int)cluster.block_rank();
+  const size_t row = blockIdx.x >> LOGC;
+  const int limb = (int)(row % (size_t)k);
+  const uint32_t q = __ldg(qtab + limb);
+  const uint32_t* w_tab = ipsi + ((size_t)limb << log_n);
+  const uint32_t* ws_tab = ipsi_shoup + ((size_t)limb << log_n);
+
+  // the chunk's low words (< 2^31) into shared memory, coalesced: a
+  // thread's first window is bits 0 .. LE - 1, E neighbouring values,
+  // which a warp could only read from global memory 32 lines at a time
+  const uint32_t* src =
+      reinterpret_cast<const uint32_t*>(in + (row << log_n) + ((size_t)chunk << lc));
+#pragma unroll
+  for (int c = 0; c < E; ++c) {
+    const int i = c * nt + tid;
+    row_smem[padded(i)] = __ldg(src + 2 * i);
+  }
+  __syncthreads();
+
+  uint32_t x[E];
+  int lo = 0;
+#pragma unroll
+  for (int c = 0; c < E; ++c) x[c] = row_smem[padded(window_index<LE>(tid, lo, c))];
+  inv_stages<LE, 0>(x, lo, 0, lc, log_n, chunk, (tid >> lo) << (lo + LE), w_tab, ws_tab, q);
+  for (int bot = LE; bot < lc; bot = lo + LE) {
+    __syncthreads();                           // every read done before the writes
+#pragma unroll
+    for (int c = 0; c < E; ++c) row_smem[padded(window_index<LE>(tid, lo, c))] = x[c];
+    __syncthreads();
+    lo = bot < lc - LE ? bot : lc - LE;        // the last window ends at bit lc
+#pragma unroll
+    for (int c = 0; c < E; ++c) x[c] = row_smem[padded(window_index<LE>(tid, lo, c))];
+    inv_stages<LE, 0>(x, lo, bot, lc, log_n, chunk, (tid >> lo) << (lo + LE), w_tab, ws_tab,
+                      q);
+  }
+  __syncthreads();
+#pragma unroll
+  for (int c = 0; c < E; ++c) row_smem[padded(window_index<LE>(tid, lo, c))] = x[c];
+  cluster.sync();                              // every chunk's stages done and visible
+
+  // The last LOGC stages pair the chunks: column j holds the values j +
+  // m n/C, m = 0 .. C - 1, one in each block's shared memory.  Stage lc +
+  // d pairs m with m + 2^d; its twiddle index is 2^(LOGC - d - 1) +
+  // (m >> (d + 1)), the same for every column, so the round needs only
+  // ipsi[1 .. C - 1].  The columns are spread over the cluster's threads,
+  // neighbouring threads on neighbouring columns: the remote reads and
+  // the int64 stores are both coalesced.
+  uint32_t cw[C], cws[C];
+#pragma unroll
+  for (int m = 1; m < C; ++m) {
+    cw[m] = __ldg(w_tab + m);
+    cws[m] = __ldg(ws_tab + m);
+  }
+  const uint32_t* part[C];
+#pragma unroll
+  for (int m = 0; m < C; ++m) part[m] = cluster.map_shared_rank(row_smem, m);
+  const uint32_t ni = __ldg(ninv + limb);
+  const uint32_t nis = __ldg(ninv_shoup + limb);
+  int64_t* dst = out + (row << log_n);
+  for (int j = chunk * nt + tid; j < nc; j += C * nt) {
+    uint32_t y[C];
+#pragma unroll
+    for (int m = 0; m < C; ++m) y[m] = part[m][padded(j)];
+#pragma unroll
+    for (int d = 0; d < LOGC; ++d) {
+#pragma unroll
+      for (int g = 0; g < (C >> (d + 1)); ++g) {
+        const int wi = (C >> (d + 1)) + g;
+#pragma unroll
+        for (int r = 0; r < (1 << d); ++r) {
+          const int m = (g << (d + 1)) | r;
+          const uint32_t u = y[m];
+          const uint32_t v = y[m + (1 << d)];
+          y[m] = u32::add_mod(u, v, q);
+          y[m + (1 << d)] = u32::shoup_mulmod(u32::sub_mod(u, v, q), cw[wi], cws[wi], q);
+        }
+      }
+    }
+#pragma unroll
+    for (int m = 0; m < C; ++m)
+      dst[((size_t)m << lc) + j] = (int64_t)u32::shoup_mulmod(y[m], ni, nis, q);
+  }
+  cluster.sync();                              // no block leaves while its chunk is read
 }
 
 template <int LE>
@@ -217,6 +355,63 @@ int launch_fwd(const void* in, void* out, const void* psi, const void* psi_shoup
       (const int64_t*)in, (int64_t*)out, (const uint32_t*)psi,
       (const uint32_t*)psi_shoup, (const uint32_t*)qtab, k, log_n);
   return (int)cudaGetLastError();
+}
+
+template <int LE, int LOGC>
+int launch_inv_t(const void* in, void* out, const void* ipsi, const void* ipsi_shoup,
+                 const void* qtab, const void* ninv, const void* ninv_shoup, long long rows,
+                 int k, int log_n, cudaStream_t stream) {
+  const int lc = log_n - LOGC;
+  if (LE > lc || lc - LE > 10) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)(padded((1 << lc) - 1) + 1) * sizeof(uint32_t);
+  cudaError_t err = cudaFuncSetAttribute(
+      ntt_inv_kernel<LE, LOGC>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1u << LOGC;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(rows << LOGC));
+  cfg.blockDim = dim3(1u << (lc - LE));
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, ntt_inv_kernel<LE, LOGC>, (const int64_t*)in, (int64_t*)out,
+                           (const uint32_t*)ipsi, (const uint32_t*)ipsi_shoup,
+                           (const uint32_t*)qtab, (const uint32_t*)ninv,
+                           (const uint32_t*)ninv_shoup, k, log_n);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+template <int LOGC>
+int launch_inv_c(int log_e, const void* in, void* out, const void* ipsi,
+                 const void* ipsi_shoup, const void* qtab, const void* ninv,
+                 const void* ninv_shoup, long long rows, int k, int log_n, cudaStream_t s) {
+  switch (log_e) {
+    case 1: return launch_inv_t<1, LOGC>(in, out, ipsi, ipsi_shoup, qtab, ninv, ninv_shoup, rows, k, log_n, s);
+    case 2: return launch_inv_t<2, LOGC>(in, out, ipsi, ipsi_shoup, qtab, ninv, ninv_shoup, rows, k, log_n, s);
+    case 3: return launch_inv_t<3, LOGC>(in, out, ipsi, ipsi_shoup, qtab, ninv, ninv_shoup, rows, k, log_n, s);
+    case 4: return launch_inv_t<4, LOGC>(in, out, ipsi, ipsi_shoup, qtab, ninv, ninv_shoup, rows, k, log_n, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The inverse NTT with C = 2^log_c blocks per row (0 .. 3) and E = 2^log_e
+// values per thread (1 .. 4).
+int launch_inv(int log_c, int log_e, const void* in, void* out, const void* ipsi,
+               const void* ipsi_shoup, const void* qtab, const void* ninv,
+               const void* ninv_shoup, long long rows, int k, int log_n, cudaStream_t s) {
+  switch (log_c) {
+    case 0: return launch_inv_c<0>(log_e, in, out, ipsi, ipsi_shoup, qtab, ninv, ninv_shoup, rows, k, log_n, s);
+    case 1: return launch_inv_c<1>(log_e, in, out, ipsi, ipsi_shoup, qtab, ninv, ninv_shoup, rows, k, log_n, s);
+    case 2: return launch_inv_c<2>(log_e, in, out, ipsi, ipsi_shoup, qtab, ninv, ninv_shoup, rows, k, log_n, s);
+    case 3: return launch_inv_c<3>(log_e, in, out, ipsi, ipsi_shoup, qtab, ninv, ninv_shoup, rows, k, log_n, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -240,14 +435,9 @@ extern "C" int ntt_inv_launch(const void* in, void* out, const void* ipsi,
                               const void* ipsi_shoup, const void* qtab,
                               const void* ninv, const void* ninv_shoup,
                               long long rows, int k, int log_n, void* stream) {
-  const int n = 1 << log_n;
-  const size_t smem = (size_t)n * sizeof(uint32_t);
-  cudaError_t err = cudaFuncSetAttribute(
-      ntt_inv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  ntt_inv_kernel<<<(unsigned)rows, block_threads(n), smem, (cudaStream_t)stream>>>(
-      (const int64_t*)in, (int64_t*)out, (const uint32_t*)ipsi,
-      (const uint32_t*)ipsi_shoup, (const uint32_t*)qtab, (const uint32_t*)ninv,
-      (const uint32_t*)ninv_shoup, k, log_n);
-  return (int)cudaGetLastError();
+  if (log_n < 1 || log_n > 15) return (int)cudaErrorInvalidValue;
+  const int log_c = kInvLogC < log_n - 1 ? kInvLogC : log_n - 1;
+  const int log_e = log_n - log_c < kInvLogE ? log_n - log_c : kInvLogE;
+  return launch_inv(log_c, log_e, in, out, ipsi, ipsi_shoup, qtab, ninv, ninv_shoup, rows, k,
+                    log_n, (cudaStream_t)stream);
 }

@@ -11,7 +11,9 @@ tiled per-row table, and lets the second operand be shorter than the
 first (`b` indexed modulo its length), so a key or plaintext shared by
 the whole batch is never materialised at batch size.
 
-`LAUNCHES` counts kernel launches, one per call that reaches the card.
+`LAUNCHES` counts kernel launches, one per call that reaches the card;
+`LAUNCHES_BY_SHAPE` counts the same launches by the row counts of their
+two operands, (rows of a, rows of b).
 """
 from __future__ import annotations
 
@@ -23,6 +25,9 @@ from .. import library
 from .. import on_device as _on
 
 LAUNCHES = {"mul_mod": 0, "add_mod": 0, "sub_mod": 0}
+# the same launches by operand shape ({(rows, rows_b): launches}), so that
+# a kernel's cost on a path can be read at the shapes the path gives it
+LAUNCHES_BY_SHAPE: dict[str, dict[tuple[int, int], int]] = {name: {} for name in LAUNCHES}
 
 _P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 
@@ -58,6 +63,13 @@ def _check(a: torch.Tensor, b: torch.Tensor, tabs) -> int:
     return n.bit_length() - 1
 
 
+def _count(name: str, rows: int, rows_b: int) -> None:
+    """Record one launch of `name` on (rows, n) and (rows_b, n) operands."""
+    LAUNCHES[name] += 1
+    by_shape = LAUNCHES_BY_SHAPE[name]
+    by_shape[rows, rows_b] = by_shape.get((rows, rows_b), 0) + 1
+
+
 def _launch(name: str, a, b, tabs):
     log_n = _check(a, b, tabs)
     out = torch.empty_like(a)
@@ -72,7 +84,7 @@ def _launch(name: str, a, b, tabs):
             err = lib.mul_mod_launch(*head, tabs.mu64.data_ptr(), *tail)
         else:
             err = getattr(lib, f"{name}_launch")(*head, *tail)
-    LAUNCHES[name] += 1
+    _count(name, a.shape[0], b.shape[0])
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
     return out

@@ -11,8 +11,11 @@ writes are int64 directly, with no cast pass, and the tables are
 indexed by limb (row % k) so they are never tiled to the batch.  The
 forward kernel runs two blocks per row, one per half after the first
 stage, with 32 values per thread in registers and five stages per
-shared-memory exchange; the inverse kernel keeps a row in one block's
-shared memory with a barrier per stage (source note in csrc/ntt.cu).
+shared-memory exchange; the inverse kernel runs a thread-block cluster
+of eight blocks per row, each with an eighth of the row in shared
+memory and 16 values per thread in registers, and the last three stages
+across the cluster through distributed shared memory (source note in
+csrc/ntt.cu).
 
 `LAUNCHES` counts kernel launches, one per call that reaches the card;
 `LAUNCHES_BY_ROWS` counts the same launches by their row count.

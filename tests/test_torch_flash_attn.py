@@ -9,8 +9,8 @@ online softmax and the dense one sum in different orders, and bfloat16
 outputs round at 2^-8 relative.  Ragged lengths go against the JAX
 `attention_ref` only, since the Pallas wrapper asserts tile divisibility.
 
-The CUDA kernel itself is held against the plain version on the card
-(`gpu` marker; skipped without one).
+The CUDA kernel itself is held against the plain version on the card by
+tests/test_torch_gpu_kernels.py.
 """
 import numpy as np
 import pytest
@@ -113,70 +113,6 @@ def test_mha_refuses_bad_head_ratio():
     _, (q, k, v) = _qkv(1, 3, 2, 16, 16, 8, "float32")
     with pytest.raises(ValueError):
         ops.mha(q, k, v)
-
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernels have no CPU mode")
-    return torch.device("cuda")
-
-
-# the edges of the bfloat16 kernel's tiles (64 query rows; 64 keys, past
-# D = 128 32 or 16): lengths 1, 15, 17, 127, 129 and 65 (one past a query tile),
-# the head dims the configs use, GQA 8, window edges inside a tile;
-# chip_smoke.py's FLASH_EDGE_CASES
-EDGE_CASES = [
-    (1, 2, 1, 1, 1, 16, dict(causal=True)),
-    (1, 2, 2, 15, 15, 64, dict(causal=True, softcap=50.0)),
-    (2, 2, 1, 17, 17, 96, dict(causal=True, window=5)),
-    (1, 4, 2, 127, 127, 128, dict(causal=True)),
-    (1, 2, 1, 129, 129, 256, dict(causal=True, softcap=50.0)),
-    (1, 2, 2, 65, 65, 64, dict(causal=True, window=40)),
-    (1, 2, 1, 1, 129, 128, dict(causal=False)),
-    (1, 2, 1, 129, 15, 64, dict(causal=False)),
-    (1, 2, 1, 17, 127, 16, dict(causal=True)),
-    (1, 2, 1, 127, 17, 96, dict(causal=True, softcap=50.0)),
-    (1, 4, 2, 129, 129, 16, dict(causal=True, softcap=50.0)),
-    (1, 16, 2, 129, 129, 128, dict(causal=True, softcap=50.0)),
-    (1, 2, 1, 300, 300, 128, dict(causal=True, window=100)),
-    (1, 2, 1, 200, 130, 256, dict(causal=False, window=70)),
-]
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("strided", [False, True], ids=["contiguous", "bshd"])
-@pytest.mark.parametrize("dtype", list(DTYPES))
-@pytest.mark.parametrize("case", EDGE_CASES, ids=[f"e{i}" for i in range(len(EDGE_CASES))])
-def test_cuda_kernel_matches_plain_version_at_tile_edges(cuda_device, case, dtype, strided):
-    B, H, Hkv, Sq, Sk, D, kwargs = case
-    tol = {"float32": 1e-4, "bfloat16": 2e-2}[dtype]
-    _, (q, k, v) = _qkv(B, H, Hkv, Sq, Sk, D, dtype, seed=4)
-    if "softcap" in kwargs:
-        q = q * 12
-    if strided:      # (B, S, heads, D) buffers, the layout the models pass
-        q, k, v = (t.transpose(1, 2).contiguous().transpose(1, 2) for t in (q, k, v))
-    q, k, v = q.to(cuda_device), k.to(cuda_device), v.to(cuda_device)
-    got = ops.mha(q, k, v, **kwargs)
-    exp = mha_ref(q, k, v, **kwargs)
-    torch.cuda.synchronize()
-    assert float((got.float() - exp.float()).abs().max()) <= tol
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("dtype", list(DTYPES))
-def test_cuda_kernel_matches_plain_version(cuda_device, dtype):
-    tol = {"float32": 1e-4, "bfloat16": 2e-2}[dtype]
-    for B, H, Hkv, Sq, Sk, D, kwargs in [
-            (2, 4, 2, 200, 200, 128, dict(causal=True, window=64, softcap=50.0)),
-            (1, 12, 1, 96, 160, 64, dict(causal=False)),
-            (1, 2, 2, 150, 40, 96, dict(causal=False, window=30))]:
-        _, (q, k, v) = _qkv(B, H, Hkv, Sq, Sk, D, dtype, seed=3)
-        q, k, v = q.to(cuda_device), k.to(cuda_device), v.to(cuda_device)
-        got = ops.mha(q, k, v, **kwargs)
-        exp = mha_ref(q, k, v, **kwargs)
-        torch.cuda.synchronize()
-        assert float((got.float() - exp.float()).abs().max()) <= tol
 
 
 # ---------------------------------------------------------------- budget

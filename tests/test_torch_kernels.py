@@ -4,9 +4,10 @@
   against Python big-int arithmetic on 29-, 30- and 31-bit primes;
 * the plain versions of the five kernels (the code a CPU tensor takes)
   against the JAX package's Pallas kernels in interpret mode, same
-  numpy-seeded inputs;
-* the CUDA kernels themselves against the plain versions — needs the
-  card, skipped without one.
+  numpy-seeded inputs.
+
+The CUDA kernels themselves are held against the plain versions on the
+card by tests/test_torch_gpu_kernels.py, which imports no JAX.
 
 All comparisons are exact (integer arithmetic): tolerance 0.
 """
@@ -24,7 +25,6 @@ from repro.kernels import u32 as jax_u32
 from repro_torch.core import ntt as tntt
 from repro_torch.core.mathutil import find_ntt_primes
 from repro_torch.core.params import make_params
-from repro_torch.core.params import _make_ntt_tables as tntt_tables
 from repro_torch.kernels import u32
 from repro_torch.kernels.modops import ops as mod_ops
 from repro_torch.kernels.modops import ref as mod_ref
@@ -278,49 +278,26 @@ def test_launch_counters_start_at_zero_and_reset():
         ntt_launch.ntt_fwd_cuda(torch.zeros((1, 64), dtype=torch.int64), tabs)
 
 
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernels have no CPU mode")
-    return torch.device("cuda")
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("n,t,k", [(128, 257, 12), (2048, 65537, 5)])
-def test_cuda_kernels_equal_plain_versions(cuda_device, n, t, k):
-    from repro_torch.core.limbops import LimbOps, force_ref
-    p = make_params(n=n, t=t, k=k)
-    rng = np.random.default_rng(n)
-    for tables in (p.Q, p.P):
-        ops = LimbOps(tables, device=cuda_device)
-        q = np.array(tables.primes)[:, None]
-        a = torch.from_numpy(rng.integers(0, q, (3, len(tables.primes), n))).to(cuda_device)
-        b = torch.from_numpy(rng.integers(0, q, (3, len(tables.primes), n))).to(cuda_device)
-        for fn in (lambda: ops.mul(a, b), lambda: ops.add(a, b[0]),
-                   lambda: ops.sub(a, b), lambda: ops.ntt(a), lambda: ops.intt(a)):
-            got = fn()
-            with force_ref():
-                exp = fn()
-            assert torch.equal(got, exp)
-        assert torch.equal(ops.intt(ops.ntt(a)), a)
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("log_n", range(1, 16))
-def test_cuda_ntt_equals_plain_version_at_every_n(cuda_device, log_n):
-    """Both NTT kernels at every n the wrappers accept, on a 30-bit and a
-    31-bit prime: random rows, rows of q - 1 and zero rows, bit for bit,
-    and intt(ntt(x)) == x."""
-    from repro_torch.core.limbops import LimbOps, force_ref
-    n = 1 << log_n
-    primes = [find_ntt_primes(n, 30, 1)[0], find_ntt_primes(n, 31, 1)[0]]
-    ops = LimbOps(tntt_tables(primes, n), device=cuda_device)
-    q = np.array(primes)[:, None]
-    rng = np.random.default_rng(log_n)
-    a = np.stack([rng.integers(0, q, (2, n)), np.broadcast_to(q - 1, (2, n)),
-                  np.zeros((2, n), dtype=np.int64)])
-    a = torch.from_numpy(np.ascontiguousarray(a)).to(cuda_device)
-    fwd, inv = ops.ntt(a), ops.intt(a)
-    with force_ref():
-        assert torch.equal(fwd, ops.ntt(a)) and torch.equal(inv, ops.intt(a))
-    assert torch.equal(ops.intt(fwd), a)
+def test_modops_launches_are_counted_by_shape_and_reset():
+    """Each pointwise launch adds one to its kernel's count and to the
+    count of its operands' row counts; `reset_launch_counts` clears both.
+    The launch wrappers call `_count` where they launch (a CPU tensor
+    never reaches it)."""
+    from repro_torch import kernels
+    from repro_torch.kernels.modops import modops
+    kernels.reset_launch_counts()
+    p = make_params(n=64, t=257, k=2)
+    tabs = limb_tables(p.Q, "cpu")
+    x = torch.zeros((3, 2, 64), dtype=torch.int64)
+    mod_ops.mul_mod(x, x[0], tabs)                   # CPU: plain version, not counted
+    assert modops.LAUNCHES_BY_SHAPE == {"mul_mod": {}, "add_mod": {}, "sub_mod": {}}
+    for rows, rows_b in ((4500, 30), (4500, 30), (150, 150)):
+        modops._count("mul_mod", rows, rows_b)
+    modops._count("add_mod", 300, 300)
+    assert modops.LAUNCHES_BY_SHAPE == {"mul_mod": {(4500, 30): 2, (150, 150): 1},
+                                        "add_mod": {(300, 300): 1}, "sub_mod": {}}
+    assert kernels.launch_counts()["mul_mod"] == 3
+    assert kernels.launch_counts()["add_mod"] == 1
+    kernels.reset_launch_counts()
+    assert modops.LAUNCHES_BY_SHAPE == {"mul_mod": {}, "add_mod": {}, "sub_mod": {}}
+    assert all(v == 0 for v in kernels.launch_counts().values())

@@ -1,12 +1,12 @@
-"""The rotate_reduce kernel of the port, on the CPU and (marked `gpu`) on
-the card:
+"""The rotate_reduce kernel of the port, on the CPU:
 
 * its plain version (what a CPU tensor takes) against the JAX package's
   Pallas kernel in interpret mode and against its jnp oracle;
 * `MockBackend(kernel_reduce=True, device="cpu")` against the JAX
   `MockBackend(kernel_reduce=True)` — slots, noise and every `OpStats`
   counter;
-* the CUDA kernel against the plain version — needs the card.
+* the CUDA kernel against the plain version: on the card, in
+  tests/test_torch_gpu_kernels.py.
 
 All comparisons are exact (integer arithmetic): tolerance 0.
 """
@@ -135,38 +135,3 @@ def test_mock_kernel_reduce_matches_looped_sum_slots():
         assert np.array_equal(gv, ev) and gn == pytest.approx(en) and gd == ed
     assert got_stats.pop("launches") < exp_stats.pop("launches")
     assert got_stats == exp_stats
-
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernels have no CPU mode")
-    return torch.device("cuda")
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("n", [256, 16384])
-@pytest.mark.parametrize("rows", [1, 3, 368])
-def test_cuda_kernel_equals_plain_version(cuda_device, rows, n):
-    rng = np.random.default_rng(rows * n)
-    x = rng.integers(0, T, (rows, n))
-    x[0, :3] = [0, T - 1, T - 1]
-    x = torch.from_numpy(x).to(cuda_device)
-    for chunk in (None, 8, n // 16):
-        before = kernels.launch_counts()["rotate_reduce"]
-        got = rr_ops.rotate_reduce(x, T, chunk=chunk)
-        assert kernels.launch_counts()["rotate_reduce"] == before + 1
-        assert torch.equal(got, rr_ref.rotate_reduce_ref(x, T, chunk))
-
-
-@pytest.mark.gpu
-def test_mock_kernel_reduce_on_the_card_matches_cpu(cuda_device):
-    prof = NoiseProfile(n=256, t=T, k=30)
-    mods = dict(schema=tschema, storage=tstorage)
-    got, got_stats = _sum_slots_run(
-        tbackend.MockBackend(prof, kernel_reduce=True, device=cuda_device), mods)
-    exp, exp_stats = _sum_slots_run(
-        tbackend.MockBackend(prof, kernel_reduce=True, device="cpu"), mods)
-    assert got_stats == exp_stats
-    for (gv, gn, _), (ev, en, _) in zip(got, exp):
-        assert np.array_equal(gv, ev) and gn == en
