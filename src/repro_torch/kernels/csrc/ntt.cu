@@ -65,9 +65,9 @@
 //     coalesced int64 outputs; a second cluster.sync() keeps every block
 //     resident until the others have read its chunk.
 //
-// C and E are fixed, the same at every row count: tools/ntt_inv_bench.py
-// on an H100 80GB HBM3 at 700 W timed C = 2, 4, 8 at E = 16 and 32, and
-// C = 8 was the fastest C at every row count the paths launch, E = 16 the
+// C and E are fixed, the same at every row count.  A sweep in one call on
+// an H100 80GB HBM3 at 700 W timed C = 2, 4, 8 at E = 16 and 32: C = 8
+// was the fastest C at every row count the paths launch, E = 16 the
 // fastest E there (ms at 30 / 150 rows: C = 2 0.0259 / 0.0841, C = 4
 // 0.0155 / 0.0631, C = 8 0.0146 / 0.0554 at E = 16; C = 8, E = 32 0.0159
 // / 0.0601; the one-block-per-row kernel 0.0642 / 0.2092).  At 4500 rows,
@@ -358,9 +358,9 @@ int launch_fwd(const void* in, void* out, const void* psi, const void* psi_shoup
 }
 
 template <int LE, int LOGC>
-int launch_inv_t(const void* in, void* out, const void* ipsi, const void* ipsi_shoup,
-                 const void* qtab, const void* ninv, const void* ninv_shoup, long long rows,
-                 int k, int log_n, cudaStream_t stream) {
+int launch_inv(const void* in, void* out, const void* ipsi, const void* ipsi_shoup,
+               const void* qtab, const void* ninv, const void* ninv_shoup, long long rows,
+               int k, int log_n, cudaStream_t stream) {
   const int lc = log_n - LOGC;
   if (LE > lc || lc - LE > 10) return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)(padded((1 << lc) - 1) + 1) * sizeof(uint32_t);
@@ -387,33 +387,6 @@ int launch_inv_t(const void* in, void* out, const void* ipsi, const void* ipsi_s
   return (int)cudaGetLastError();
 }
 
-template <int LOGC>
-int launch_inv_c(int log_e, const void* in, void* out, const void* ipsi,
-                 const void* ipsi_shoup, const void* qtab, const void* ninv,
-                 const void* ninv_shoup, long long rows, int k, int log_n, cudaStream_t s) {
-  switch (log_e) {
-    case 1: return launch_inv_t<1, LOGC>(in, out, ipsi, ipsi_shoup, qtab, ninv, ninv_shoup, rows, k, log_n, s);
-    case 2: return launch_inv_t<2, LOGC>(in, out, ipsi, ipsi_shoup, qtab, ninv, ninv_shoup, rows, k, log_n, s);
-    case 3: return launch_inv_t<3, LOGC>(in, out, ipsi, ipsi_shoup, qtab, ninv, ninv_shoup, rows, k, log_n, s);
-    case 4: return launch_inv_t<4, LOGC>(in, out, ipsi, ipsi_shoup, qtab, ninv, ninv_shoup, rows, k, log_n, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
-// The inverse NTT with C = 2^log_c blocks per row (0 .. 3) and E = 2^log_e
-// values per thread (1 .. 4).
-int launch_inv(int log_c, int log_e, const void* in, void* out, const void* ipsi,
-               const void* ipsi_shoup, const void* qtab, const void* ninv,
-               const void* ninv_shoup, long long rows, int k, int log_n, cudaStream_t s) {
-  switch (log_c) {
-    case 0: return launch_inv_c<0>(log_e, in, out, ipsi, ipsi_shoup, qtab, ninv, ninv_shoup, rows, k, log_n, s);
-    case 1: return launch_inv_c<1>(log_e, in, out, ipsi, ipsi_shoup, qtab, ninv, ninv_shoup, rows, k, log_n, s);
-    case 2: return launch_inv_c<2>(log_e, in, out, ipsi, ipsi_shoup, qtab, ninv, ninv_shoup, rows, k, log_n, s);
-    case 3: return launch_inv_c<3>(log_e, in, out, ipsi, ipsi_shoup, qtab, ninv, ninv_shoup, rows, k, log_n, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
 }  // namespace
 
 extern "C" int ntt_fwd_launch(const void* in, void* out, const void* psi,
@@ -436,8 +409,17 @@ extern "C" int ntt_inv_launch(const void* in, void* out, const void* ipsi,
                               const void* ninv, const void* ninv_shoup,
                               long long rows, int k, int log_n, void* stream) {
   if (log_n < 1 || log_n > 15) return (int)cudaErrorInvalidValue;
-  const int log_c = kInvLogC < log_n - 1 ? kInvLogC : log_n - 1;
-  const int log_e = log_n - log_c < kInvLogE ? log_n - log_c : kInvLogE;
-  return launch_inv(log_c, log_e, in, out, ipsi, ipsi_shoup, qtab, ninv, ninv_shoup, rows, k,
-                    log_n, (cudaStream_t)stream);
+  // C = min(8, n / 2) blocks per row, E = min(16, n / C) values per thread
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (log_n) {
+    case 1: return launch_inv<1, 0>(in, out, ipsi, ipsi_shoup, qtab, ninv, ninv_shoup, rows, k, log_n, s);
+    case 2: return launch_inv<1, 1>(in, out, ipsi, ipsi_shoup, qtab, ninv, ninv_shoup, rows, k, log_n, s);
+    case 3: return launch_inv<1, 2>(in, out, ipsi, ipsi_shoup, qtab, ninv, ninv_shoup, rows, k, log_n, s);
+    case 4: return launch_inv<1, 3>(in, out, ipsi, ipsi_shoup, qtab, ninv, ninv_shoup, rows, k, log_n, s);
+    case 5: return launch_inv<2, 3>(in, out, ipsi, ipsi_shoup, qtab, ninv, ninv_shoup, rows, k, log_n, s);
+    case 6: return launch_inv<3, 3>(in, out, ipsi, ipsi_shoup, qtab, ninv, ninv_shoup, rows, k, log_n, s);
+    default:
+      return launch_inv<kInvLogE, kInvLogC>(in, out, ipsi, ipsi_shoup, qtab, ninv, ninv_shoup,
+                                            rows, k, log_n, s);
+  }
 }

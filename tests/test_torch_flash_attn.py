@@ -24,6 +24,7 @@ from repro.kernels.flash_attn.ref import attention_ref as jax_attention_ref
 from repro_torch.kernels.flash_attn import flash_attn as fa_launch
 from repro_torch.kernels.flash_attn import ops
 from repro_torch.kernels.flash_attn.ref import attention_ref, mha_ref
+from torch_cases import qkv_arrays
 
 VARIANTS = [dict(causal=True), dict(causal=True, window=32),
             dict(causal=True, softcap=50.0), dict(causal=False)]
@@ -33,11 +34,8 @@ DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, to
 
 def _qkv(B, H, Hkv, Sq, Sk, D, dtype, seed=0):
     """numpy normals, rounded to `dtype` once, as both packages' inputs."""
-    rng = np.random.default_rng(seed)
     jdt, tdt = DTYPES[dtype]
-    arrs = [rng.standard_normal(shape).astype(np.float32)
-            for shape in ((B, H, Sq, D), (B, Hkv, Sk, D), (B, Hkv, Sk, D))]
-    jx = [jnp.asarray(a, jdt) for a in arrs]
+    jx = [jnp.asarray(a, jdt) for a in qkv_arrays(B, H, Hkv, Sq, Sk, D, seed)]
     tx = [torch.from_numpy(np.array(j.astype(jnp.float32))).to(tdt) for j in jx]
     return jx, tx
 

@@ -14,7 +14,6 @@ The limb kernels, both NTTs and rotate_reduce are held exactly
 bfloat16 (outputs round at 2^-8 relative).  The CPU tests of the same
 modules hold the plain versions against the JAX package.
 """
-import dataclasses
 import os
 import sys
 
@@ -37,6 +36,7 @@ from repro_torch.kernels.flash_attn import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attn.ref import mha_ref  # noqa: E402
 from repro_torch.kernels.rotate_reduce import ops as rr_ops  # noqa: E402
 from repro_torch.kernels.rotate_reduce import ref as rr_ref  # noqa: E402
+from torch_cases import qkv_arrays, sum_slots_run  # noqa: E402
 
 T = 65537
 FLASH_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
@@ -157,30 +157,14 @@ def test_cuda_kernel_equals_plain_version(cuda_device, rows, n):
         assert torch.equal(got, rr_ref.rotate_reduce_ref(x, T, chunk))
 
 
-def _sum_slots_run(bk):
-    """One single ciphertext, one 3-block batch and a batched table
-    column through `sum_slots`: (slots, noise, depth) of each, OpStats."""
-    schema = tschema.TableSchema("items", [tschema.ColumnSpec("grp", "int"),
-                                           tschema.ColumnSpec("qty", "int")])
-    rng = np.random.default_rng(4)
-    nrows = 600
-    db = tstorage.Database(bk)
-    db.load_table(schema, {"grp": rng.integers(1, 6, nrows),
-                           "qty": rng.integers(0, 50, nrows)}, nrows)
-    bk.stats.reset()
-    single = bk.sum_slots(bk.encrypt(np.arange(200) % bk.t))
-    batch = bk.sum_slots(bk.stack_blocks([bk.encrypt(np.full(256, i)) for i in (1, 2, 3)]))
-    col = bk.sum_slots(bk.stack_blocks(db.tables["items"].col("qty").blocks))
-    return ([(c.vec, c.noise, c.depth) for c in (single, batch, col)],
-            dataclasses.asdict(bk.stats))
-
-
 @pytest.mark.gpu
 def test_mock_kernel_reduce_on_the_card_matches_cpu(cuda_device):
     prof = NoiseProfile(n=256, t=T, k=30)
-    got, got_stats = _sum_slots_run(
-        tbackend.MockBackend(prof, kernel_reduce=True, device=cuda_device))
-    exp, exp_stats = _sum_slots_run(tbackend.MockBackend(prof, kernel_reduce=True, device="cpu"))
+    mods = dict(schema=tschema, storage=tstorage)
+    got, got_stats = sum_slots_run(
+        tbackend.MockBackend(prof, kernel_reduce=True, device=cuda_device), mods)
+    exp, exp_stats = sum_slots_run(
+        tbackend.MockBackend(prof, kernel_reduce=True, device="cpu"), mods)
     assert got_stats == exp_stats
     for (gv, gn, _), (ev, en, _) in zip(got, exp):
         assert np.array_equal(gv, ev) and gn == en
@@ -188,11 +172,9 @@ def test_mock_kernel_reduce_on_the_card_matches_cpu(cuda_device):
 
 # -------------------------------------------------------------- flash_attn
 def _qkv(B, H, Hkv, Sq, Sk, D, dtype, seed):
-    """q (B, H, Sq, D) and k, v (B, Hkv, Sk, D): numpy normals rounded to
+    """q (B, H, Sq, D) and k, v (B, Hkv, Sk, D): `qkv_arrays` rounded to
     `dtype` once."""
-    rng = np.random.default_rng(seed)
-    return [torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dtype)
-            for shape in ((B, H, Sq, D), (B, Hkv, Sk, D), (B, Hkv, Sk, D))]
+    return [torch.from_numpy(a).to(dtype) for a in qkv_arrays(B, H, Hkv, Sq, Sk, D, seed)]
 
 
 # the edges of the bfloat16 kernel's tiles (64 query rows; 64 keys, past

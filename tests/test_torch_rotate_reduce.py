@@ -10,8 +10,6 @@
 
 All comparisons are exact (integer arithmetic): tolerance 0.
 """
-import dataclasses
-
 import numpy as np
 import pytest
 
@@ -33,6 +31,7 @@ from repro_torch.engine import storage as tstorage
 from repro_torch.kernels.rotate_reduce import ops as rr_ops
 from repro_torch.kernels.rotate_reduce import ref as rr_ref
 from repro_torch.kernels.rotate_reduce import rotate_reduce as rr_launch
+from torch_cases import sum_slots_run
 
 T = 65537
 
@@ -85,35 +84,12 @@ def test_kernel_reduce_needs_a_card_by_default():
     assert tbackend.MockBackend(kernel_reduce=True, device="cpu").kernel_reduce
 
 
-def _mock_db(mods, bk, nrows=600):
-    S = mods["schema"]
-    schema = S.TableSchema("items", [S.ColumnSpec("grp", "int"),
-                                     S.ColumnSpec("qty", "int")])
-    rng = np.random.default_rng(4)
-    data = {"grp": rng.integers(1, 6, nrows), "qty": rng.integers(0, 50, nrows)}
-    db = mods["storage"].Database(bk)
-    db.load_table(schema, data, nrows)
-    return db
-
-
-def _sum_slots_run(bk, mods):
-    """The cases of the JAX package's kernel_reduce test: one single
-    ciphertext, one 3-block batch, and a batched table column."""
-    db = _mock_db(mods, bk)
-    bk.stats.reset()
-    single = bk.sum_slots(bk.encrypt(np.arange(200) % bk.t))
-    batch = bk.sum_slots(bk.stack_blocks([bk.encrypt(np.full(256, i)) for i in (1, 2, 3)]))
-    col = bk.sum_slots(bk.stack_blocks(db.tables["items"].col("qty").blocks))
-    return ([(c.vec, c.noise, c.depth) for c in (single, batch, col)],
-            dataclasses.asdict(bk.stats))
-
-
 def test_mock_kernel_reduce_matches_jax_mock():
     port = tbackend.MockBackend(NoiseProfile(n=256, t=T, k=30),
                                 kernel_reduce=True, device="cpu")
     ref = jbackend.MockBackend(JNoiseProfile(n=256, t=T, k=30), kernel_reduce=True)
-    got, got_stats = _sum_slots_run(port, dict(schema=tschema, storage=tstorage))
-    exp, exp_stats = _sum_slots_run(ref, dict(schema=jschema, storage=jstorage))
+    got, got_stats = sum_slots_run(port, dict(schema=tschema, storage=tstorage))
+    exp, exp_stats = sum_slots_run(ref, dict(schema=jschema, storage=jstorage))
     assert got_stats == exp_stats
     for (gv, gn, gd), (ev, en, ed) in zip(got, exp):
         assert gv.dtype == np.int64 and np.array_equal(gv, ev)
@@ -129,8 +105,8 @@ def test_mock_kernel_reduce_matches_looped_sum_slots():
                                 kernel_reduce=True, device="cpu")
     loop = tbackend.MockBackend(NoiseProfile(n=256, t=T, k=30))
     mods = dict(schema=tschema, storage=tstorage)
-    got, got_stats = _sum_slots_run(kern, mods)
-    exp, exp_stats = _sum_slots_run(loop, mods)
+    got, got_stats = sum_slots_run(kern, mods)
+    exp, exp_stats = sum_slots_run(loop, mods)
     for (gv, gn, gd), (ev, en, ed) in zip(got, exp):
         assert np.array_equal(gv, ev) and gn == pytest.approx(en) and gd == ed
     assert got_stats.pop("launches") < exp_stats.pop("launches")
