@@ -18,6 +18,15 @@ gemma2-27b's full width and depth:
             cross-query scheduler `run_workload([Q1, Q6])` on
             `MockBackend(kernel_reduce=True)`, whose `sum_slots` runs the
             rotate_reduce kernel; every result checked against its oracle;
+  shard     sharded execution on logical shard contexts, under the same
+            keys: Q1 on LINEITEM at 65,536 rows (two blocks) unsharded, at
+            shards=2 x limb_shards=4, and at shards=2 losing a worker
+            mid-query (resharded 2 -> 1, resumed from a stage checkpoint),
+            all equal to the oracle with equal OpStats; the cost model
+            (per-op seconds measured on the card, op-count and ledger
+            pricing); a checkpoint of Q1's encrypted columns restored onto
+            the card; then the chaos suite's fault classes over the
+            Q1/Q6/Q12/Q19 mix on `MockBackend(kernel_reduce=True)`;
   serve     gemma2-27b, 46 layers in bfloat16 from a seeded generator,
             through `repro_torch.launch.serve.main` (`--dtype bfloat16`):
             2 prompts of 5120 tokens through the prefill step (every
@@ -28,7 +37,8 @@ gemma2-27b's full width and depth:
     python3 chip_smoke.py            # needs one NVIDIA GPU and nvcc
 
 Output: one JSON object per line (`env`, `kernel_checks`, `micro`,
-`main`, `workload`, `serve_consistency`, `serve`, `kernels`),
+`main`, `workload`, `shard`, `shard_chaos`, `serve_consistency`, `serve`,
+`kernels`),
 the card's name and power limit as nvidia-smi prints them, and as the
 last line `{"ok": true, "device": {...}}`.  Any failed phase raises, so
 the exit code is non-zero and no result line is printed.
@@ -47,6 +57,7 @@ import dataclasses
 import gc
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -75,7 +86,8 @@ SEED = 0
 BFV_KERNELS = ("ntt_fwd", "ntt_inv", "mul_mod", "add_mod", "sub_mod")
 # the kernels each driven path must launch
 PATH_KERNELS = {"main": BFV_KERNELS, "workload_q1_bfv": BFV_KERNELS,
-                "workload_mock": ("rotate_reduce",), "serve": ("flash_attn",)}
+                "workload_mock": ("rotate_reduce",), "shard_q1_bfv": BFV_KERNELS,
+                "shard_chaos_mock": ("rotate_reduce",), "serve": ("flash_attn",)}
 # flash_attn against its plain version: the kernel and the dense version
 # sum in different orders (float32), and bfloat16 outputs round at 2^-8
 FLASH_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
@@ -705,15 +717,17 @@ def phase_main(paper, profile: bool = False):
 
 
 # ---------------------------------------------------------------- workload
-def workload_q1_bfv(bk, db) -> dict:
-    """TPC-H Q1 through `run_via_plan` on real ciphertexts: optimized
-    planner, static verification on (the default).  Stage seconds come
-    from the executor's own stage boundaries (`ExecReport.record`), the
-    verifier's from `verify_compiled`; the decrypts are timed apart and
-    are part of the aggregate stage."""
+def _q1_via_plan(bk, pl, faults_plan=None) -> dict:
+    """TPC-H Q1 through `run_via_plan(pl, plan_q1())` on real ciphertexts,
+    static verification on (the planner's default), optionally under
+    `faults.inject(faults_plan)`.  Stage seconds come from the executor's
+    own stage boundaries (`ExecReport.record`), the verifier's from
+    `verify_compiled`; the decrypts are timed apart and are part of the
+    aggregate stage.  Launch counts are set to 0 just before the query and
+    read just after."""
     from repro_torch import kernels
     from repro_torch.engine import executor, queries, verify
-    from repro_torch.engine.planner import Planner
+    from repro_torch.runtime import faults
 
     bk.stats.reset()
     bk.op_log.clear()
@@ -733,7 +747,7 @@ def workload_q1_bfv(bk, db) -> dict:
     def verify_compiled(*args, **kwargs):
         t0 = clock()
         rep = orig_verify(*args, **kwargs)
-        secs["static_verify"] = clock() - t0
+        secs["static_verify"] = secs.get("static_verify", 0.0) + clock() - t0
         seen["verify"] = rep
         mark[0] = clock()
         return rep
@@ -745,43 +759,58 @@ def workload_q1_bfv(bk, db) -> dict:
         return out
 
     torch.cuda.reset_peak_memory_stats()
-    pl = Planner(db, optimized=True)
     executor.ExecReport.record = record
     verify.verify_compiled = verify_compiled
     bk.decrypt = decrypt
+    scope = faults.inject(faults_plan) if faults_plan is not None else contextlib.nullcontext()
     kernels.reset_launch_counts()
     t0 = clock()
     try:
-        got = queries.run_via_plan(pl, queries.plan_q1())
+        with scope:
+            got = queries.run_via_plan(pl, queries.plan_q1())
     finally:
         executor.ExecReport.record = orig_record
         verify.verify_compiled = orig_verify
         bk.decrypt = orig_decrypt
     query_s = clock() - t0
-    launches = kernels.launch_counts()
-    by_rows = ntt_launches_by_rows()
-    rep, vrep = seen["report"], seen["verify"]
+    severities = {}
+    for f in seen["verify"].findings:
+        severities[f.severity] = severities.get(f.severity, 0) + 1
+    return {"got": got, "query_s": query_s, "secs": secs, "report": seen["report"],
+            "verify": seen["verify"], "verify_findings": severities,
+            "launches": kernels.launch_counts(), "ntt_launches_by_rows": ntt_launches_by_rows(),
+            "modops_launches_by_shape": modops_launches_by_shape(),
+            "op_stats": dataclasses.asdict(bk.stats),
+            "peak_device_bytes": torch.cuda.max_memory_allocated()}
+
+
+def workload_q1_bfv(bk, db) -> dict:
+    """TPC-H Q1 through `run_via_plan` on real ciphertexts: optimized
+    planner, static verification on (the default)."""
+    from repro_torch.engine import queries
+    from repro_torch.engine.planner import Planner
+
+    run = _q1_via_plan(bk, Planner(db, optimized=True))
+    got, rep, vrep, launches = run["got"], run["report"], run["verify"], run["launches"]
     rep.validate()
     exp = queries.oracle_q1(db)
-    severities = {}
-    for f in vrep.findings:
-        severities[f.severity] = severities.get(f.severity, 0) + 1
     res = {
         "query": "Q1", "path": "run_via_plan on BFVBackend(paper_params())",
         "groups": len(got), "values_checked": sum(len(row) for row in exp.values()),
         "equal_to_oracle": got == exp,
-        "seconds": {"query": round(query_s, 3), **{k: round(v, 3) for k, v in secs.items()}},
+        "seconds": {"query": round(run["query_s"], 3),
+                    **{k: round(v, 3) for k, v in run["secs"].items()}},
         "history": rep.history,
         "depth": {"measured": rep.measured_depth, "predicted": rep.predicted_depth,
                   "budget_levels": rep.budget_levels},
-        "op_stats": dataclasses.asdict(bk.stats),
-        "verify_findings": severities,
+        "op_stats": run["op_stats"],
+        "verify_findings": run["verify_findings"],
         "noise_budget_bits_at_last_decrypt": round(rep.decrypt_headrooms[-1], 2),
         "min_noise_budget_bits": round(min(rep.decrypt_headrooms), 2),
         "kernel_launches": launches,
-        "ntt_launches_by_rows": by_rows,
-        "modops_launches_by_shape": modops_launches_by_shape(),
-        "peak_device_bytes": torch.cuda.max_memory_allocated(),
+        "ntt_launches_by_rows": run["ntt_launches_by_rows"],
+        "modops_launches_by_shape": run["modops_launches_by_shape"],
+        "peak_device_bytes": run["peak_device_bytes"],
     }
     emit("workload", res)
     if got != exp or len(got) != 6 or any(len(row) != 8 for row in got.values()):
@@ -834,6 +863,283 @@ def workload_mock() -> dict:
     if launches["rotate_reduce"] < 66:
         raise AssertionError(f"rotate_reduce launched {launches['rotate_reduce']} "
                              f"times, Q1's 66 group aggregates need at least 66")
+    return launches
+
+
+# ------------------------------------------------------------------- shard
+SHARD_ROWS = 65536           # two blocks of n = 32768: a block axis to shard
+SHARD_CELL = (2, 4)          # (shards, limb_shards): k = 30 pads to 32 limbs
+# the columns Q1 reads, checkpointed and restored on the card
+Q1_COLUMNS = ("l_shipdate", "l_returnflag", "l_linestatus", "l_quantity",
+              "l_extendedprice", "l_discount", "l_tax")
+CKPT_DIR = os.path.join(HERE, ".scratch", "shard_checkpoint")
+# the Mock chaos mix: the multi-block paper-noise profile of the chaos suite
+CHAOS_PROFILE = dict(n=64, t=65537, k=30)
+CHAOS_MIX = ("Q1", "Q6", "Q12", "Q19")
+CHAOS_COSTS = {"mul": 0.05, "mul_plain": 0.055, "mul_scalar": 0.002,
+               "add": 0.0015, "rotate": 0.105, "refresh": 44.0}
+
+
+def _shard_run_record(run, exp) -> dict:
+    rep = run["report"]
+    return {"equal_to_oracle": run["got"] == exp,
+            "seconds": {"query": round(run["query_s"], 3),
+                        **{k: round(v, 3) for k, v in run["secs"].items()}},
+            "refresh": run["op_stats"]["refresh"],
+            "verify_findings": run["verify_findings"],
+            "recoveries": rep.recoveries,
+            "kernel_launches": run["launches"],
+            "peak_device_bytes": run["peak_device_bytes"]}
+
+
+def _tee_ledger(ctx, other) -> None:
+    """Mirror every block-op and fold charge of `ctx` into `other`, a
+    context of another geometry, so that both price the same run."""
+    record, record_fold = ctx.record, ctx.record_fold
+
+    def tee_record(field, units, distributed):
+        record(field, units, distributed)
+        other.record(field, units, distributed)
+
+    def tee_fold(live, phys):
+        record_fold(live, phys)
+        other.record_fold(live, phys)
+
+    ctx.record, ctx.record_fold = tee_record, tee_fold
+
+
+def shard_q1_bfv(paper, bk) -> dict:
+    """Q1 on LINEITEM at 65,536 rows (two blocks) under `bk`'s keys: (a)
+    unsharded, (b) on a logical (2, 4) shard context, (c) on a 2-shard
+    context losing worker 1 at the `where` stage (the executor reshards
+    2 -> 1 and resumes from the `atoms` checkpoint); then the cost model
+    (`baseline.measure_costs` on the card, the op-count model and both
+    contexts' ledgers priced with it) and a checkpoint of the encrypted
+    columns Q1 reads.  Returns the launch counts summed over the three
+    runs, each set to 0 just before its query and read just after."""
+    from repro_torch.engine import baseline, queries, tpch
+    from repro_torch.engine.backend import OpStats
+    from repro_torch.engine.planner import Planner
+    from repro_torch.engine.sharded import ShardContext
+    from repro_torch.runtime import faults
+
+    t0 = clock()
+    db = tpch.load(bk, tpch.Scale(lineitem=SHARD_ROWS), tables=["lineitem"])
+    load_s = clock() - t0
+    li = db.tables["lineitem"]
+    exp = queries.oracle_q1(db)
+    shards, limb_shards = SHARD_CELL
+
+    runs, launches = {}, {}
+    pl_a = Planner(db, optimized=True)
+    runs["a"] = _q1_via_plan(bk, pl_a)
+    runs["a"]["report"].validate()
+    pl_b = Planner(db, optimized=True, shards=shards, limb_shards=limb_shards)
+    one = ShardContext(1, limbs=bk.limbs, ring_n=bk.slots)
+    _tee_ledger(pl_b.shard_ctx, one)
+    runs["b"] = _q1_via_plan(bk, pl_b)
+    runs["b"]["report"].validate()
+    pl_c = Planner(db, optimized=True, shards=2)
+    runs["c"] = _q1_via_plan(bk, pl_c, faults.FaultPlan(device_loss_stage="where",
+                                                         device_loss_worker=1))
+    for name in BFV_KERNELS:
+        launches[name] = sum(r["launches"][name] for r in runs.values())
+
+    ledger = pl_b.shard_ctx.ledger_snapshot()
+    rec = {"lineitem_rows": li.nrows, "blocks_per_column": li.nblocks,
+           "params": {"n": paper.n, "t": paper.t, "k": paper.k},
+           "load_encrypt_s": round(load_s, 3), "values_checked": 48,
+           "runs": {"a_unsharded": _shard_run_record(runs["a"], exp),
+                    f"b_shards_{shards}_limb_shards_{limb_shards}":
+                        _shard_run_record(runs["b"], exp),
+                    "c_device_loss_at_where": _shard_run_record(runs["c"], exp)},
+           "op_stats_equal_a_b": runs["a"]["op_stats"] == runs["b"]["op_stats"],
+           "op_stats_a": runs["a"]["op_stats"],
+           "ledger_b": ledger, "ledger_1x1_same_run": one.ledger_snapshot(),
+           "c_final_shards": pl_c.shard_ctx.shards,
+           "kernel_launches": launches}
+    recs_c = runs["c"]["report"].recoveries
+    bad = []
+    for key, run in runs.items():
+        if run["got"] != exp or len(run["got"]) != 6:
+            bad.append(f"({key}) decrypts {run['got']} != oracle_q1 {exp}")
+        if run["op_stats"]["refresh"] != 0 or run["verify"].errors:
+            bad.append(f"({key}) refresh {run['op_stats']['refresh']}, verifier errors "
+                       f"{[str(f) for f in run['verify'].errors]}")
+    if runs["a"]["op_stats"] != runs["b"]["op_stats"]:
+        bad.append(f"OpStats differ: (a) {runs['a']['op_stats']} (b) {runs['b']['op_stats']}")
+    if not (ledger["folds"] > 0 and ledger["gathers"] > 0 and ledger["gather_bytes"] > 0):
+        bad.append(f"(b) ledger charged no fold or gather: {ledger}")
+    if (pl_c.shard_ctx.shards != 1 or [r["kind"] for r in recs_c] != ["device-loss"]
+            or "reshard 2->1" not in recs_c[0]["action"] or "atoms" not in recs_c[0]["action"]):
+        bad.append(f"(c) recovered as {recs_c}, final shards {pl_c.shard_ctx.shards}")
+    for key in ("a", "b"):
+        idle = [k for k in BFV_KERNELS if runs[key]["launches"][k] <= 0]
+        if idle:
+            bad.append(f"({key}) launched no {idle} kernel")
+    if bad:
+        emit("shard", rec)
+        raise AssertionError("shard phase: " + "; ".join(bad))
+
+    # the cost model: free the runs' ciphertexts, then keygen and time each op
+    query_s = {k: runs[k]["query_s"] for k in runs}
+    stats_a = OpStats(**runs["a"]["op_stats"])
+    ctx_b = pl_b.shard_ctx
+    del runs, pl_a, pl_b, pl_c
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = clock()
+    costs = baseline.measure_costs(paper, seed=SEED)
+    costs_s = clock() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["cost_model"] = {
+        "measure_costs_s": round(costs_s, 3),
+        "op_seconds": costs.as_dict(),
+        "nshedb_seconds_a": baseline.nshedb_seconds(stats_a, costs),
+        "measured_query_seconds_a": query_s["a"],
+        "modeled_seconds_b": ctx_b.modeled_seconds(costs.as_dict()),
+        "modeled_seconds_1x1_same_run": one.modeled_seconds(costs.as_dict()),
+        "measured_query_seconds_b": query_s["b"]}
+    rec["checkpoint"] = _checkpoint_columns(bk, li)
+    emit("shard", rec)
+    return launches
+
+
+def _checkpoint_columns(bk, li) -> dict:
+    """Save Q1's encrypted columns (CUDA int64 tensors) twice with the
+    async writer, restore onto the card (byte-identical, one decrypt per
+    block equal to the original's), truncate the newer snapshot: restore
+    raises the typed fault and restore_latest_valid falls back."""
+    from repro_torch.core.bfv import Ciphertext
+    from repro_torch.runtime import faults
+    from repro_torch.runtime.checkpoint import CheckpointManager
+
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    cols = {c: [b.data for b in li.col(c).blocks] for c in Q1_COLUMNS}
+    mgr = CheckpointManager(CKPT_DIR, keep=2, async_write=True)
+    t0 = clock()
+    mgr.save(1, cols, extra={"rows": li.nrows})
+    mgr.save(2, cols, extra={"rows": li.nrows})
+    mgr.wait()
+    save_s = clock() - t0
+    t0 = clock()
+    got, _, extra = mgr.restore(2, cols, device="cuda")
+    restore_s = clock() - t0
+    identical = all(torch.equal(g, c) for name in cols for g, c in zip(got[name], cols[name]))
+    decrypts = all(
+        np.array_equal(bk.decrypt(Ciphertext(g, b.noise, b.params)), bk.decrypt(b))
+        for name in cols for g, b in zip(got[name], li.col(name).blocks))
+    on_card = all(g.device.type == "cuda" for name in got for g in got[name])
+    faults.truncate_checkpoint(CKPT_DIR, 2)
+    try:
+        mgr.restore(2, cols, device="cuda")
+        typed = False
+    except faults.CheckpointCorruptFault:
+        typed = True
+    step, back, _, _ = mgr.restore_latest_valid(cols, device="cuda")
+    fell_back = step == 1 and all(torch.equal(g, c) for name in cols
+                                  for g, c in zip(back[name], cols[name]))
+    nbytes = sum(t.numel() * t.element_size() for ts in cols.values() for t in ts)
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    res = {"columns": list(cols), "leaves": sum(len(v) for v in cols.values()),
+           "bytes_per_step": nbytes, "save_two_steps_s": round(save_s, 3),
+           "restore_s": round(restore_s, 3), "byte_identical": identical,
+           "decrypts_equal": decrypts, "restored_on_card": on_card,
+           "extra": extra, "truncated_raises_typed": typed,
+           "fell_back_to_step": step, "fallback_identical": fell_back}
+    if not (identical and decrypts and on_card and typed and fell_back):
+        raise AssertionError(f"checkpoint round trip on the card failed: {res}")
+    return res
+
+
+def shard_chaos_mock() -> dict:
+    """The chaos suite's fault classes on the card: MockBackend at the
+    multi-block paper-noise profile with `kernel_reduce=True` (every
+    `sum_slots` one rotate_reduce launch), tiny LINEITEM in 3 blocks, the
+    Q1/Q6/Q12/Q19 mix with shards=2 (3 blocks pad to 4 lanes) under
+    under-prediction, device loss, a straggler struck out after
+    `patience` rounds (a 2 x 2 grid: of two workers the slow one is the
+    median) and cache poison.  Each run must decrypt identical to its
+    fault-free run or raise a typed fault."""
+    from repro_torch import kernels
+    from repro_torch.core.noise import NoiseProfile
+    from repro_torch.engine import queries, tpch
+    from repro_torch.engine.backend import MockBackend
+    from repro_torch.engine.executor import Executor
+    from repro_torch.engine.planner import Planner
+    from repro_torch.engine.workload import WorkloadCache
+    from repro_torch.runtime import faults
+    from repro_torch.runtime.elastic import StragglerDetector
+
+    bk = MockBackend(NoiseProfile(**CHAOS_PROFILE), kernel_reduce=True, device="cuda")
+    db = tpch.load(bk, tpch.Scale.tiny(), seed=7)
+    kernels.reset_launch_counts()
+    t0 = clock()
+    base = {qn: queries.run_via_plan(Planner(db, optimized=True), queries.QUERIES[qn][0]())
+            for qn in CHAOS_MIX}
+
+    def faulted(qn, fp, shards=2, limb_shards=None, rounds=1, patience=None, cache=None):
+        pl = Planner(db, optimized=True, shards=shards, limb_shards=limb_shards, cache=cache)
+        if patience is not None:
+            pl.attach_straggler_detector(
+                StragglerDetector(threshold=2.0, patience=patience, timeout_s=1e9), CHAOS_COSTS)
+        recs = []
+        with faults.inject(fp):
+            for _ in range(rounds):
+                ex = Executor(pl)
+                out = ex.run(queries.QUERIES[qn][0]())
+                recs += ex.report.recoveries
+        return out, recs, (pl.shard_ctx.shards, pl.shard_ctx.limb_shards)
+
+    def poisoned(qn):
+        cache = WorkloadCache()
+        faulted(qn, faults.FaultPlan(), cache=cache)
+        faults.poison_cache(cache, bk, entries=None)
+        out, recs, cell = faulted(qn, faults.FaultPlan(), cache=cache)
+        return out, recs + [{"kind": "cache-poison", "drops": cache.stats.poison_drops}], cell
+
+    # fault class -> (the recovery it must report, its run of one query)
+    scenarios = {
+        "underprediction": ("overflow", lambda qn: faulted(qn, faults.FaultPlan(
+            underpredict_bits=500.0, underpredict_count=3))),
+        "device_loss": ("device-loss", lambda qn: faulted(qn, faults.FaultPlan(
+            device_loss_stage="any", device_loss_worker=1))),
+        "straggler": ("straggler", lambda qn: faulted(
+            qn, faults.FaultPlan(straggler_slowdown={3: 10.0}), limb_shards=2, rounds=2,
+            patience=1)),
+        "cache_poison": ("cache-poison", poisoned),
+    }
+    outcomes, bad = {}, []
+    for fault, (kind, run) in scenarios.items():
+        for qn in CHAOS_MIX:
+            try:
+                out, recs, cell = run(qn)
+            except faults.ExecutionFault as e:
+                outcomes[f"{fault}/{qn}"] = {"typed_fault": e.kind}
+                continue
+            same = out == base[qn]
+            outcomes[f"{fault}/{qn}"] = {"identical": same, "final_cell": list(cell),
+                                         "recoveries": [r.get("kind") for r in recs]}
+            if not same:
+                bad.append(f"{fault}/{qn}: silent wrong answer")
+            if not any(r["kind"] == kind and r.get("drops", 1) > 0 for r in recs):
+                bad.append(f"{fault}/{qn}: the fault never fired ({recs})")
+    wall_s = clock() - t0
+    launches = kernels.launch_counts()
+    oracle_ok = all(base[qn] == queries.QUERIES[qn][2](db) for qn in CHAOS_MIX)
+    rec = {"path": f"MockBackend(NoiseProfile(n=64, t=65537, k=30), kernel_reduce=True, "
+                   f"device={str(bk.device)!r})",
+           "lineitem_rows": db.tables["lineitem"].nrows,
+           "blocks": db.tables["lineitem"].nblocks, "baselines_equal_to_oracle": oracle_ok,
+           "outcomes": outcomes, "seconds": round(wall_s, 3), "kernel_launches": launches}
+    if not oracle_ok:
+        bad.append("fault-free Mock runs disagree with the oracles")
+    if launches["rotate_reduce"] <= 0:
+        bad.append("rotate_reduce never launched")
+    emit("shard_chaos", rec)
+    if bad:
+        raise AssertionError("shard chaos: " + "; ".join(bad))
     return launches
 
 
@@ -1032,7 +1338,7 @@ KERNEL_META = {
     "flash_attn": ("src/repro_torch/kernels/csrc/flash_attn.cu",
                    "src/repro/kernels/flash_attn/flash_attn.py:74"),
 }
-PHASES = ("kernels", "micro", "main", "workload", "serve")
+PHASES = ("kernels", "micro", "main", "workload", "shard", "serve")
 
 
 def main() -> None:
@@ -1054,9 +1360,10 @@ def main() -> None:
     os.environ.setdefault("TRITON_CACHE_DIR", os.path.join(BUILD_DIR, "triton"))
 
     from repro_torch.core.params import paper_params
+    from repro_torch.engine.backend import BFVBackend
 
     phase_env()
-    paper = paper_params() if phases & {"kernels", "main", "workload"} else None
+    paper = paper_params() if phases & {"kernels", "main", "workload", "shard"} else None
     timings = phase_kernels(paper) if "kernels" in phases else {}
     if "micro" in phases:
         phase_micro()
@@ -1069,8 +1376,16 @@ def main() -> None:
         if bk is None:           # reuse main's keys and table when main ran
             bk, db, _ = load_paper_lineitem(paper)
         by_path["workload_q1_bfv"] = workload_q1_bfv(bk, db)
-        bk = db = None
         by_path["workload_mock"] = workload_mock()
+    db = None                    # the shard phase loads its own table
+    if "shard" in phases:
+        gc.collect()
+        torch.cuda.empty_cache()
+        if bk is None:           # reuse the earlier phases' keys when they ran
+            bk = BFVBackend(paper, seed=SEED)
+        by_path["shard_q1_bfv"] = shard_q1_bfv(paper, bk)
+        bk = None
+        by_path["shard_chaos_mock"] = shard_chaos_mock()
     if "serve" in phases:
         bk = db = None           # the BFV phases' keys and table hold ~33 GB
         gc.collect()

@@ -19,10 +19,13 @@ Layers:
             (`python -m repro_torch.engine.verify`)
   workload  the noise-aware mask cache + run_workload, the cross-query
             scheduler
-  sharded   the shard-context activation hook (single-device only so far)
+  sharded   logical shard contexts: lane / limb padding, the 2-D cost
+            ledger, elastic re-sharding (one device; no collectives yet)
   tpch      TPC-H datagen + plaintext oracle
   queries   the paper's nine benchmark queries (Q1,4,5,6,8,12,14,17,19);
             Q1/Q6/Q12/Q19 also execute through the compiled DAG
+  baseline  HE3DB / ArcEDB cost models, measured per-op costs and the
+            NSHEDB timing model
 """
 from .backend import BFVBackend, MockBackend, OpStats  # noqa: F401
 from .executor import ExecReport, run_via_plan  # noqa: F401

@@ -57,8 +57,9 @@ from ..core.encoder import BatchEncoder
 from ..core.noise import NoiseModel, NoiseProfile, paper_profile
 from ..core.params import HEParams
 
-_MESH_MSG = ("shard contexts with a real device mesh arrive with the port of "
-             "the sharded execution slice")
+_MESH_MSG = ("shard contexts with a real device mesh need collectives across "
+             "devices, which this package does not have yet; contexts are "
+             "logical (mesh=None)")
 
 
 @dataclasses.dataclass

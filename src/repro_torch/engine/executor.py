@@ -733,22 +733,30 @@ def run_via_plan(planner, plan: QueryPlan, validate: bool = True,
     """Execute a QueryPlan through the compiled operator DAG.  Returns
     the same decrypted result structure as the legacy `run_qN` body.
 
-    `shards=N` (scan lanes over N mesh data lanes) and `limb_shards=M`
-    (the k RNS limbs over M model-axis lanes) raise NotImplementedError
-    until engine/sharded.py's ShardContext is ported, as
-    `Planner(shards=)` does.  `verify` overrides the planner's
-    static-verification knob for this call only (None keeps the planner
-    default)."""
-    if shards is not None or limb_shards is not None:
-        raise NotImplementedError(
-            "sharded execution (shards=/limb_shards=) arrives with the "
-            "port of engine/sharded.py's ShardContext")
+    `shards=N` runs this plan's scan phase sharded over N mesh data
+    lanes and `limb_shards=M` shards the k RNS limbs over M model-axis
+    lanes (engine/sharded.py) without mutating the planner's default:
+    the context is installed for this call only.  `verify` overrides the
+    planner's static-verification knob for this call only (None keeps
+    the planner default)."""
     prev_verify = getattr(planner, "verify_plans", True)
     if verify is not None:
         planner.verify_plans = verify
     try:
-        # No context installed: leave planner.shard_ctx alone so a
-        # mid-run recovery's resharding stays observable post-call.
-        return Executor(planner).run(plan, validate=validate)
+        if shards is None and limb_shards is None:
+            # No context installed: leave planner.shard_ctx alone so a
+            # mid-run recovery's resharding stays observable post-call.
+            return Executor(planner).run(plan, validate=validate)
+        from .sharded import make_shard_context
+        prev = getattr(planner, "shard_ctx", None)
+        planner.shard_ctx = make_shard_context(
+            shards if shards is not None else 1,
+            limb_shards=limb_shards if limb_shards is not None else 1,
+            limbs=getattr(planner.bk, "limbs", None),
+            ring_n=getattr(planner.bk, "slots", 0))
+        try:
+            return Executor(planner).run(plan, validate=validate)
+        finally:
+            planner.shard_ctx = prev
     finally:
         planner.verify_plans = prev_verify

@@ -98,10 +98,14 @@ class Planner:
         # execution; None/None keeps the classic single-device path.
         if (shards is not None and shards >= 1) or (
                 limb_shards is not None and limb_shards >= 1):
-            raise NotImplementedError(
-                "sharded execution (shards=/limb_shards=) arrives with the "
-                "port of engine/sharded.py's ShardContext")
-        self.shard_ctx = None
+            from .sharded import make_shard_context
+            self.shard_ctx = make_shard_context(
+                shards if shards is not None else 1, mesh,
+                limb_shards=limb_shards if limb_shards is not None else 1,
+                limbs=getattr(self.bk, "limbs", None),
+                ring_n=getattr(self.bk, "slots", 0))
+        else:
+            self.shard_ctx = None
         # Noise-aware mask store shared by every compiled mask: WHERE
         # predicates, group-by EQ enumerations, aux/join masks and sort
         # passes all read and write the same subgraph store through

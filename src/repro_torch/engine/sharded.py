@@ -1,14 +1,68 @@
-"""Shard-context hooks the single-device engine already calls.
+"""Sharded query execution over ciphertext blocks and RNS limbs (DESIGN §4).
 
-Only the two helpers the planner, the atom evaluator and the backends
-import: `activate` (install a shard context on a backend for a scope)
-and `pad_to` (lane count after padding to a multiple of the shard
-count).  `ShardContext`, the cost ledger and the collectives are not
-here yet, so the only context ever installed is None.
+Two orthogonal axes of parallelism, on one 2-D `("data", "model")` grid:
+
+* **data** — scan-first execution is embarrassingly parallel across
+  ciphertext blocks: a stacked column is a `(nblocks, 2, k, n)` batch,
+  and every mask-evaluation / combination / plaintext-mul step is
+  block-local.  Lanes partition over "data"; the block fold is the one
+  collective.
+
+* **model** — inside every block, the k RNS limbs are embarrassingly
+  parallel for all pointwise mul/add and NTT work, so limbs partition
+  over "model" — except key-switching (relinearization after a ct-ct
+  multiply, and every Galois rotation), the only cross-limb step in
+  core/bfv.py, which gathers the centered decomposition digits along
+  "model" before the gadget fold.
+
+This module owns the runtime plumbing:
+
+* `ShardContext` — the per-run distribution plan.  It carries both axis
+  sizes and a 2-D cost ledger: *distributed* units (lanes of a
+  multi-block batch — divide by the data-shard count), *replicated*
+  units (singletons and post-fold reductions), fold collectives, and
+  *limb-local* bytes (work that divides by the per-device limb count)
+  vs *all-gather* bytes (key-switch digit movement across "model").
+  `modeled_seconds(costs)` prices the ledger with measured per-op
+  costs; the limb factor k / ceil(k/M) divides every limb-local term
+  and the gather bytes pay `costs["gather_byte"]` seconds each.
+
+* Limb padding: when `k % limb_shards != 0` the limb axis pads up to
+  `limb_pad_to(k, M)` — padded limbs are pure ledger entities, so
+  decrypt/OpStats stay byte-identical to single-device regardless of M.
+
+* `activate(bk, ctx)` — installs the context on a backend for the
+  duration of an execution.  While active, `stack_blocks` pads the lane
+  count up to a multiple of `ctx.shards` with zero blocks (uneven
+  tables compile to one even launch; `CiphertextBatch.live` records the
+  logical count so fold/unstack/decrypt ignore the pads) and every
+  `OpStats` charge is mirrored into the ledger.
+
+Contexts are logical: every one runs on the backend's own device
+(`make_shard_context` attaches no device mesh), with the same padding,
+ledger, re-sharding and recovery as a multi-device run would have.  The
+collectives over a real mesh are not here; a context carrying a mesh
+makes the backends raise.
+
+Parity contract: padding lanes (block or limb) are exact additive
+identities, `_count`/`_nblocks` keep returning *live* lane counts, and
+noise accounting never sees the pads — so OpStats, noise trajectories,
+refresh schedules and decrypted outputs are byte-identical to the
+single-device path for every (shards, limb_shards) combination.
 """
 from __future__ import annotations
 
 import contextlib
+import math
+
+from ..runtime.elastic import elastic_limb_plan, elastic_scan_plan
+
+# Modeled interconnect cost of moving one byte in a model-axis
+# all-gather (~25 GB/s effective bisection — host-interconnect class).
+# Callers override via costs["gather_byte"]; at paper parameters a
+# key-switch gather is ~0.3 ms/block against a ~15 s multiply, so the
+# limb axis is compute-dominated by 4+ orders of magnitude.
+GATHER_BYTE_SECONDS = 4e-11
 
 
 def pad_to(nblocks: int, shards: int) -> int:
@@ -18,11 +72,230 @@ def pad_to(nblocks: int, shards: int) -> int:
     return nblocks + (-nblocks) % shards
 
 
+def limb_pad_to(limbs: int, limb_shards: int) -> int:
+    """Limb count after padding k up to a multiple of the model axis.
+
+    Unlike block lanes, a single limb still pads (every ciphertext has
+    the full k-limb tower) — the pad limbs are ledger/placement
+    entities only and never materialize in ciphertext data."""
+    if limb_shards <= 1:
+        return limbs
+    return limbs + (-limbs) % limb_shards
+
+
+class ShardContext:
+    """2-D distribution plan + cost ledger for one sharded execution."""
+
+    def __init__(self, shards: int, mesh=None, limb_shards: int = 1,
+                 limbs: int | None = None, ring_n: int = 0):
+        if shards < 1:
+            raise ValueError(f"shards must be >= 1, got {shards}")
+        if limb_shards < 1:
+            raise ValueError(f"limb_shards must be >= 1, got {limb_shards}")
+        self.shards = int(shards)          # data axis
+        self.limb_shards = int(limb_shards)  # model axis
+        self.limbs = limbs                 # k of the backend's RNS tower
+        self.ring_n = int(ring_n)          # polynomial degree n
+        self.mesh = mesh
+        # op -> units that run data-parallel over the shard axis
+        # (physical lanes of multi-block batches, pads included — pads
+        # occupy a device lane even though OpStats never count them).
+        self.dist: dict[str, float] = {}
+        # op -> units with no block axis to shard (singletons, folded
+        # aggregates, refreshes of single blocks) — serial time.
+        self.repl: dict[str, float] = {}
+        self.folds = 0         # cross-shard fold collectives issued
+        self.gathers = 0       # model-axis key-switch all-gathers issued
+        self.gather_bytes = 0.0      # digit bytes moved across "model"
+        self.limb_local_bytes = 0.0  # op bytes that stayed limb-local
+
+    # ----------------------------------------------------------- geometry
+    @property
+    def workers(self) -> int:
+        """Flattened worker count: id = data_row * limb_shards + limb."""
+        return self.shards * self.limb_shards
+
+    @property
+    def limb_mesh(self):
+        """The mesh iff it carries a real model axis to key-switch over."""
+        if (self.mesh is not None and self.limb_shards > 1
+                and "model" in getattr(self.mesh, "axis_names", ())):
+            return self.mesh
+        return None
+
+    def limb_factor(self) -> float:
+        """Speedup of limb-local work: k over the padded per-device limb
+        count, k / ceil(k/M) — exactly M when M divides k, less when
+        padding wastes device rows (k=30, M=4 -> 30/8 = 3.75x)."""
+        if self.limb_shards <= 1:
+            return 1.0
+        if not self.limbs:
+            return float(self.limb_shards)
+        kpad = limb_pad_to(self.limbs, self.limb_shards)
+        return self.limbs / (kpad // self.limb_shards)
+
+    def _block_bytes(self) -> int:
+        """Device bytes of one (2, kpad, n) int64 block (pads occupy
+        device rows, matching the physical-lane ledger philosophy)."""
+        if not self.limbs or not self.ring_n:
+            return 0
+        return 2 * limb_pad_to(self.limbs, self.limb_shards) * self.ring_n * 8
+
+    def _digit_bytes(self) -> int:
+        """Bytes of one (kpad, n) int64 centered-digit polynomial — the
+        payload a key-switch all-gathers along the model axis."""
+        if not self.limbs or not self.ring_n:
+            return 0
+        return limb_pad_to(self.limbs, self.limb_shards) * self.ring_n * 8
+
+    # ------------------------------------------------------------- ledger
+    def record(self, field: str, units: float, distributed: bool) -> None:
+        ledger = self.dist if distributed else self.repl
+        ledger[field] = ledger.get(field, 0) + units
+        self.limb_local_bytes += units * self._block_bytes()
+
+    def record_fold(self, live: int, phys: int) -> None:
+        """A block-fold: shard-local adds + one tree combine."""
+        local = max(phys - self.shards, 0) if self.shards > 1 else max(phys - 1, 0)
+        if local:
+            self.dist["add"] = self.dist.get("add", 0) + local
+            self.limb_local_bytes += local * self._block_bytes()
+        self.folds += 1
+
+    def record_gather(self, units: float) -> None:
+        """A key-switch digit all-gather over "model": each unit moves
+        one block's (kpad, n) centered-digit polynomial.  Only called
+        when limb_shards > 1 — at M=1 there is nothing to gather and
+        the ledger must price identically to the 1-D context."""
+        self.gathers += 1
+        self.gather_bytes += units * self._digit_bytes()
+
+    def modeled_seconds(self, costs: dict) -> float:
+        """Price the ledger: distributed time divides by the data-shard
+        count AND the limb factor (every op is limb-local), replicated
+        time divides by the limb factor alone, the fold tree moves
+        limb-sharded payloads, and the gather bytes pay the model-axis
+        interconnect — each device already holds its own 1/M slice, so
+        only (M-1)/M of every gathered byte crosses the wire."""
+        lf = self.limb_factor()
+        dist = sum(n * costs.get(op, 0.0) for op, n in self.dist.items())
+        repl = sum(n * costs.get(op, 0.0) for op, n in self.repl.items())
+        tree = math.ceil(math.log2(self.shards)) if self.shards > 1 else 0
+        coll = self.folds * tree * costs.get("add", 0.0)
+        gather = (self.gather_bytes
+                  * costs.get("gather_byte", GATHER_BYTE_SECONDS)
+                  * (self.limb_shards - 1) / max(self.limb_shards, 1))
+        return dist / (self.shards * lf) + repl / lf + coll / lf + gather
+
+    def heartbeats(self, costs: dict, slowdowns: dict | None = None,
+                   baseline: float = 0.0) -> dict:
+        """Per-worker synthetic step times from the cost ledger.
+
+        The sharded scan is bulk-synchronous: every worker carries an
+        equal share of the distributed units plus the replicated tail,
+        so the modeled per-run seconds *are* each worker's step time.
+        Workers enumerate the flattened 2-D grid — id = data_row *
+        limb_shards + limb_col — so a straggling chip shows up on
+        exactly one (row, column) coordinate.  `slowdowns` scales
+        individual workers (real hardware skew, or an injected
+        straggler — runtime/faults.py); `baseline` subtracts a prior
+        `modeled_seconds` snapshot so a heartbeat reflects one
+        execution, not the context's lifetime.  The executor feeds
+        these to StragglerDetector.report after every sharded run.
+        """
+        step = max(self.modeled_seconds(costs) - baseline, 0.0)
+        slow = slowdowns or {}
+        return {w: step * float(slow.get(w, 1.0)) for w in range(self.workers)}
+
+    def ledger_snapshot(self) -> dict:
+        return {"shards": self.shards, "limb_shards": self.limb_shards,
+                "dist": dict(self.dist), "repl": dict(self.repl),
+                "folds": self.folds, "gathers": self.gathers,
+                "gather_bytes": self.gather_bytes,
+                "limb_local_bytes": self.limb_local_bytes,
+                "limb_factor": self.limb_factor(),
+                "real_mesh": self.mesh is not None}
+
+    def reshard(self, excluded, axis: str = "data") -> "ShardContext":
+        """Shrink one mesh axis onto the surviving workers after
+        straggler exclusion; the other axis is preserved.  `excluded`
+        holds data-row ids for axis="data", limb-column ids for
+        axis="model"."""
+        if axis == "model":
+            plan = elastic_limb_plan(self.limb_shards, excluded,
+                                     limbs=self.limbs)
+            return make_shard_context(self.shards,
+                                      limb_shards=plan["limb_shards"],
+                                      limbs=self.limbs, ring_n=self.ring_n)
+        plan = elastic_scan_plan(self.shards, excluded)
+        return make_shard_context(plan["shards"],
+                                  limb_shards=self.limb_shards,
+                                  limbs=self.limbs, ring_n=self.ring_n)
+
+    def __repr__(self) -> str:  # pragma: no cover - debug aid
+        return (f"ShardContext(shards={self.shards}, "
+                f"limb_shards={self.limb_shards}, "
+                f"mesh={'real' if self.mesh is not None else None}, "
+                f"folds={self.folds}, gathers={self.gathers})")
+
+
+def make_shard_context(shards: int, mesh="auto", limb_shards: int = 1,
+                       limbs: int | None = None,
+                       ring_n: int = 0) -> ShardContext:
+    """Build a context.  'auto' resolves to no mesh: the context runs
+    logical-only (padding + ledger, on the backend's one device), which
+    is what the reference builds on a one-device host.  A mesh passed
+    explicitly is kept, and the backends raise on it."""
+    if mesh == "auto":
+        mesh = None
+    return ShardContext(shards, mesh, limb_shards=limb_shards,
+                        limbs=limbs, ring_n=ring_n)
+
+
+def lint_shard_context(ctx: ShardContext, limbs: int | None = None,
+                       ring_n: int = 0) -> list:
+    """Static placement lint (engine/verify.py): check a shard context's
+    2-D geometry against the backend it will execute on.  Returns
+    (code, message) tuples; empty means the placement is consistent.
+
+    Rules: the context's recorded RNS tower / ring degree must match the
+    backend's; a *real* model axis requires k % M == 0 (the limb-padding
+    rule — padded limbs are ledger-only entities and must never get
+    device placement); and a real mesh's axis extents must match the
+    declared shard counts."""
+    out = []
+    if limbs is not None and ctx.limbs is not None and ctx.limbs != limbs:
+        out.append(("mesh.limbs",
+                    f"context RNS tower k={ctx.limbs} != backend k={limbs} "
+                    f"— gather-byte and limb-factor accounting would be "
+                    f"priced for the wrong ciphertext geometry"))
+    if ring_n and ctx.ring_n and ctx.ring_n != ring_n:
+        out.append(("mesh.ring",
+                    f"context ring_n={ctx.ring_n} != backend slots={ring_n}"))
+    if (ctx.limb_mesh is not None and ctx.limbs is not None
+            and ctx.limbs % ctx.limb_shards != 0):
+        out.append(("mesh.pad",
+                    f"real model axis with k={ctx.limbs} % M="
+                    f"{ctx.limb_shards} != 0 — padded limbs must stay "
+                    f"ledger-only, never device-placed"))
+    if ctx.mesh is not None:
+        shape = dict(getattr(ctx.mesh, "shape", None) or {})
+        if "data" in shape and shape["data"] != ctx.shards:
+            out.append(("mesh.data",
+                        f"mesh data axis has {shape['data']} devices, "
+                        f"context declares shards={ctx.shards}"))
+        if "model" in shape and shape["model"] != ctx.limb_shards:
+            out.append(("mesh.model",
+                        f"mesh model axis has {shape['model']} devices, "
+                        f"context declares limb_shards={ctx.limb_shards}"))
+    return out
+
+
 @contextlib.contextmanager
-def activate(bk, ctx):
+def activate(bk, ctx: ShardContext | None):
     """Install ctx as bk.shard_ctx for the duration.  Reentrant: if the
     same context is already active this is a no-op, so nested scopes
-    (planner -> evaluator flush) do not double-install."""
+    (executor -> evaluator flush) do not double-install."""
     prev = getattr(bk, "shard_ctx", None)
     if ctx is None or prev is ctx:
         yield prev

@@ -24,14 +24,15 @@ Three cooperating analyses over the physical IR of a `CompiledQuery`:
       refresh somewhere is sized from a tampered or stale level count —
       the statically visible form of "someone dropped a refresh".
 
-  cache-aliasing linting
+  cache-aliasing + mesh-placement linting
       No in-place refresh may rejuvenate a cache entry that more than
       one consumer of this plan already holds (the noise-unaware CSE
       bug class): entry blocks are tagged at insert/clone and every
       refresh event records how often its entry had been served.  Shard
-      contexts (mesh-placement lint, ledger reconciliation) arrive with
-      the port of engine/sharded.py's ShardContext; until then a
-      planner carrying one raises NotImplementedError here.
+      contexts are linted against the backend geometry (limb count,
+      ring size, the k % M padding rule, data/model mesh axis extents)
+      and the abstract run's collective counts are reconciled with the
+      shadow ledger.
 
 Verification is *pure*: it never touches the planner's backend, tables
 or cache — everything is lifted into abstract shadows first.  The real
@@ -201,6 +202,8 @@ class AbstractBackend(_BackendBase):
         self._admission_key = None      # set by _VerifyCache.serve
         self._pending_refresh = None
         self._cache = None              # the _VerifyCache, for serve counts
+        self._folds = 0
+        self._gather_calls = 0
 
     # -- lane metadata ----------------------------------------------------
     def _nblocks(self, ct) -> int:
@@ -280,6 +283,12 @@ class AbstractBackend(_BackendBase):
         return AbstractCipher(fresh, fresh, 0, ct.nb, ct.nphys, ct.batch,
                               ct.sites)
 
+    def _charge_gather(self, *cts, mult: int = 1) -> None:
+        ctx = self.shard_ctx
+        if ctx is not None and getattr(ctx, "limb_shards", 1) > 1 and mult > 0:
+            self._gather_calls += 1
+        super()._charge_gather(*cts, mult=mult)
+
     # -- io ----------------------------------------------------------------
     def encrypt(self, vec) -> AbstractCipher:
         self.stats.encrypt += 1
@@ -336,6 +345,7 @@ class AbstractBackend(_BackendBase):
         self.stats.launches += 1
         if self.shard_ctx is not None:
             self.shard_ctx.record_fold(nb, self._nblocks_phys(batch))
+        self._folds += 1
         per_n = batch.noise if np.ndim(batch.noise) else None
         per_r = batch.nr if np.ndim(batch.nr) else None
         noise = float(per_n[0]) if per_n is not None else batch.noise
@@ -538,12 +548,20 @@ def _lift_db(db, abk, rep: VerifyReport) -> _ShimDB:
 
 def _shadow_planner(planner, adb, vcache):
     from .planner import Planner
+    from .sharded import ShardContext
     spl = Planner(adb, optimized=planner.optimized, cache=vcache,
                   verify=False)
     spl.budget_levels = planner.budget_levels
     spl.fuse_masks = planner.fuse_masks
     spl.share_masks = planner.share_masks
     spl.guards = False
+    ctx = getattr(planner, "shard_ctx", None)
+    if ctx is not None:
+        # Same geometry, fresh ledger, never a real mesh: verification
+        # must not place anything on devices.
+        spl.shard_ctx = ShardContext(ctx.shards, None,
+                                     limb_shards=ctx.limb_shards,
+                                     limbs=ctx.limbs, ring_n=ctx.ring_n)
     return spl
 
 
@@ -684,11 +702,6 @@ def verify_compiled(planner, cq, mirror_begin_run: bool = True,
     Pure: the planner's backend, tables and cache are never touched."""
     import dataclasses as _dc
 
-    if getattr(planner, "shard_ctx", None) is not None:
-        raise NotImplementedError(
-            "verifying under a shard context (mesh lint, ledger "
-            "reconciliation) arrives with the port of engine/sharded.py's "
-            "ShardContext")
     rep = VerifyReport(cq.plan.name, planner.optimized)
     pr = planner.report(cq.plan)
     rep.predicted_depth = pr.predicted_depth
@@ -697,6 +710,15 @@ def verify_compiled(planner, cq, mirror_begin_run: bool = True,
 
     # --- IR typing: scheduler annotations (pure tree walk) ---------------
     _check_annotations(cq, rep)
+
+    # --- mesh placement lint ---------------------------------------------
+    ctx = getattr(planner, "shard_ctx", None)
+    if ctx is not None:
+        from .sharded import lint_shard_context
+        for code, msg in lint_shard_context(
+                ctx, limbs=getattr(planner.bk, "limbs", None),
+                ring_n=getattr(planner.bk, "slots", 0)):
+            rep.add("error", code, "shard_ctx", msg)
 
     # --- abstract interpretation -----------------------------------------
     from .executor import Executor
@@ -710,8 +732,10 @@ def verify_compiled(planner, cq, mirror_begin_run: bool = True,
         vcache.begin_run()
     acq = _dc.replace(cq, fact=adb.tables[cq.plan.fact])
     sx = Executor(spl, evaluator=spl.evaluator())
+    from .sharded import activate
     try:
-        _abstract_run(sx, acq, warm)
+        with activate(abk, spl.shard_ctx):
+            _abstract_run(sx, acq, warm)
     except Exception as e:    # noqa: BLE001 — any abstract failure is a finding
         rep.add("error", "verify.crash", abk._stage,
                 f"abstract interpretation failed: {e!r}")
@@ -769,6 +793,22 @@ def verify_compiled(planner, cq, mirror_begin_run: bool = True,
         rep.add("error", "depth.under", "plan",
                 f"prediction {pr.predicted_depth} overshoots abstract "
                 f"depth {rep.measured_depth} (+{DEPTH_SLACK_UNDER})")
+
+    # --- mesh ledger reconciliation ----------------------------------------
+    sctx = spl.shard_ctx
+    if sctx is not None:
+        if sctx.folds != abk._folds:
+            rep.add("error", "mesh.ledger", "shard_ctx",
+                    f"ledger recorded {sctx.folds} folds, abstract run "
+                    f"performed {abk._folds}")
+        if sctx.gathers != abk._gather_calls:
+            rep.add("error", "mesh.ledger", "shard_ctx",
+                    f"ledger recorded {sctx.gathers} key-switch gathers, "
+                    f"abstract run charged {abk._gather_calls}")
+        if sctx.limb_shards == 1 and sctx.gather_bytes != 0.0:
+            rep.add("error", "mesh.ledger", "shard_ctx",
+                    f"1-D mesh charged {sctx.gather_bytes} gather bytes — "
+                    f"model-axis collectives on a data-only mesh")
     return rep
 
 
@@ -808,9 +848,13 @@ def _main(argv=None) -> int:
 
     p = argparse.ArgumentParser(
         description="Static verification of all registered TPC-H plans "
-                    "(noise abstract interpretation + IR typing), both "
-                    "depth regimes, no ciphertext work.")
+                    "(noise abstract interpretation + IR typing + mesh "
+                    "lint), both depth regimes, no ciphertext work.")
     p.add_argument("--only", default=None, help="verify a single query")
+    p.add_argument("--shards", type=int, default=None,
+                   help="lint against an N-way data-sharded context")
+    p.add_argument("--limb-shards", type=int, default=None,
+                   help="lint against an M-way limb-sharded model axis")
     args = p.parse_args(argv)
 
     bk = MockBackend()
@@ -823,6 +867,11 @@ def _main(argv=None) -> int:
         plan = queries.QUERIES[name][0]()
         for optimized in (True, False):
             pl = Planner(db, optimized=optimized, verify=False)
+            if args.shards or args.limb_shards:
+                from .sharded import make_shard_context
+                pl.shard_ctx = make_shard_context(
+                    args.shards or 1, limb_shards=args.limb_shards or 1,
+                    limbs=bk.limbs, ring_n=bk.slots)
             t0 = time.perf_counter()
             rep = verify_plan(pl, plan)
             dt = time.perf_counter() - t0

@@ -11,7 +11,9 @@ machine with a GPU and no JAX:
 The limb kernels, both NTTs and rotate_reduce are held exactly
 (tolerance 0: integer arithmetic); flash_attn within 1e-4 in float32
 (the kernel and the dense version sum in different orders) and 2e-2 in
-bfloat16 (outputs round at 2^-8 relative).  The CPU tests of the same
+bfloat16 (outputs round at 2^-8 relative).  Sharded BFV queries on the
+card equal the unsharded run on the card, and checkpoints of CUDA
+tensors restore onto the card byte for byte.  The CPU tests of the same
 modules hold the plain versions against the JAX package.
 """
 import os
@@ -30,13 +32,18 @@ from repro_torch.core.mathutil import find_ntt_primes  # noqa: E402
 from repro_torch.core.noise import NoiseProfile  # noqa: E402
 from repro_torch.core.params import _make_ntt_tables, make_params  # noqa: E402
 from repro_torch.engine import backend as tbackend  # noqa: E402
+from repro_torch.engine import executor as texecutor  # noqa: E402
+from repro_torch.engine import plan as tplan  # noqa: E402
+from repro_torch.engine import planner as tplanner  # noqa: E402
 from repro_torch.engine import schema as tschema  # noqa: E402
 from repro_torch.engine import storage as tstorage  # noqa: E402
 from repro_torch.kernels.flash_attn import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attn.ref import mha_ref  # noqa: E402
 from repro_torch.kernels.rotate_reduce import ops as rr_ops  # noqa: E402
 from repro_torch.kernels.rotate_reduce import ref as rr_ref  # noqa: E402
-from torch_cases import qkv_arrays, sum_slots_run  # noqa: E402
+from repro_torch.runtime.checkpoint import CheckpointManager  # noqa: E402
+from torch_cases import (bfv_shard_db, bfv_shard_oracle, bfv_shard_plans,  # noqa: E402
+                         qkv_arrays, sharded_run, sum_slots_run)
 
 T = 65537
 FLASH_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
@@ -168,6 +175,61 @@ def test_mock_kernel_reduce_on_the_card_matches_cpu(cuda_device):
     assert got_stats == exp_stats
     for (gv, gn, _), (ev, en, _) in zip(got, exp):
         assert np.array_equal(gv, ev) and gn == en
+
+
+# --------------------------------------------------- sharded BFV, checkpoints
+SHARD_MODS = dict(schema=tschema, storage=tstorage, planner=tplanner, executor=texecutor)
+
+
+@pytest.fixture(scope="module")
+def bfv_shard(cuda_device):
+    """The micro sharding table on the card and on the CPU, and each
+    plan's unsharded run on the card."""
+    dbs = {dev: bfv_shard_db(SHARD_MODS, tbackend.BFVBackend(
+               make_params(n=128, t=257, k=12), seed=11, device=dev))
+           for dev in ("cuda", "cpu")}
+    plans = bfv_shard_plans(tplan)
+    base = {name: sharded_run(SHARD_MODS, dbs["cuda"][0], plan, None)
+            for name, plan in plans.items()}
+    return dbs, plans, base
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cell", [(2, 1), (2, 4), (4, 2)], ids=lambda c: f"{c[0]}x{c[1]}")
+@pytest.mark.parametrize("pname", ["g1", "j1", "f1"])
+def test_cuda_sharded_bfv_equals_unsharded(bfv_shard, pname, cell):
+    """A logical shard context on real ciphertexts on the card: padded
+    lanes in the limb kernels, the same decrypts and OpStats as the
+    unsharded run, and the same ledger as the plain versions' run."""
+    dbs, plans, base = bfv_shard
+    kernels.reset_launch_counts()
+    got = sharded_run(SHARD_MODS, dbs["cuda"][0], plans[pname], cell)
+    assert all(kernels.launch_counts()[k] > 0 for k in ("ntt_fwd", "ntt_inv", "mul_mod"))
+    cpu = sharded_run(SHARD_MODS, dbs["cpu"][0], plans[pname], cell)
+    _, data, pdata = dbs["cuda"]
+    assert got["got"] == base[pname]["got"] == bfv_shard_oracle(pname, data, pdata)
+    assert got["stats"] == base[pname]["stats"] and got["stats"]["refresh"] == 0
+    assert got == cpu
+    assert got["ledger"]["folds"] > 0
+
+
+@pytest.mark.gpu
+def test_cuda_checkpoint_round_trip(cuda_device, tmp_path):
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    params = {"ct": torch.randint(0, 2**30, (2, 2, 12, 128), generator=gen,
+                                  device=cuda_device, dtype=torch.int64),
+              "w": [torch.randn(64, 32, generator=gen, device=cuda_device)]}
+    mgr = CheckpointManager(str(tmp_path), async_write=True)
+    mgr.save(1, params, extra={"rows": 256})
+    params["ct"].add_(1)            # the host copy was taken before save returned
+    mgr.save(2, params)
+    mgr.wait()
+    one, _, extra = mgr.restore(1, params)
+    two, _, _ = mgr.restore(2, params)
+    assert extra == {"rows": 256}
+    assert one["ct"].device.type == "cuda" and two["w"][0].device.type == "cuda"
+    assert torch.equal(one["ct"] + 1, params["ct"]) and torch.equal(two["ct"], params["ct"])
+    assert torch.equal(two["w"][0], params["w"][0])
 
 
 # -------------------------------------------------------------- flash_attn

@@ -201,16 +201,37 @@ def test_under_reporting_noise_model_matches():
     assert outs[0] == outs[1]
 
 
-def test_later_slices_raise_not_implemented(tiny_dbs):
-    tdb, _ = tiny_dbs
+def test_later_slices_raise_not_implemented():
+    """Sharded execution on logical contexts is ported (it runs and equals
+    the unsharded result; 64 slots split tiny LINEITEM into 3 blocks, so
+    shards=2 pads a lane); what stays for later slices raises: a shard
+    context carrying a real device mesh on real ciphertexts (collectives
+    across cards), the training step and the dry-run's input specs."""
+    from repro_torch.configs import get_config, registry
+    from repro_torch.engine import sharded as tsharded
+    from repro_torch.train import steps
+
+    tdb = ttpch.load(tbackend.MockBackend(tnoise.NoiseProfile(n=64, t=65537, k=30)),
+                     ttpch.Scale.tiny(), tables=["lineitem"])
+    base = tqueries.run_via_plan(tplanner.Planner(tdb), tqueries.plan_q6())
+    assert tqueries.run_via_plan(tplanner.Planner(tdb, shards=2), tqueries.plan_q6()) == base
+    assert tqueries.run_via_plan(tplanner.Planner(tdb, limb_shards=2), tqueries.plan_q6()) == base
+    assert tqueries.run_via_plan(tplanner.Planner(tdb), tqueries.plan_q6(), shards=2) == base
+    assert tqueries.run_via_plan(tplanner.Planner(tdb), tqueries.plan_q6(), limb_shards=2) == base
+    bk = tbackend.BFVBackend(make_params(n=128, t=257, k=12), seed=3, device="cpu")
+    blocks = [bk.encrypt(np.arange(4)) for _ in range(3)]
+    with tsharded.activate(bk, tsharded.ShardContext(2, mesh=object())):
+        with pytest.raises(NotImplementedError):
+            bk.stack_blocks(blocks)
+        with pytest.raises(NotImplementedError):
+            bk.fold_blocks(bk.ctx.stack_cts(blocks))
+    cfg = get_config("gemma2-27b")
     with pytest.raises(NotImplementedError):
-        tplanner.Planner(tdb, shards=2)
+        steps.make_train_step(cfg)
     with pytest.raises(NotImplementedError):
-        tplanner.Planner(tdb, limb_shards=2)
+        steps.init_opt(cfg, {})
     with pytest.raises(NotImplementedError):
-        tqueries.run_via_plan(tplanner.Planner(tdb), tqueries.plan_q6(), shards=2)
-    with pytest.raises(NotImplementedError):
-        tqueries.run_via_plan(tplanner.Planner(tdb), tqueries.plan_q6(), limb_shards=2)
+        registry.input_specs(cfg, "train")
 
 
 def test_refresh_inplace_keeps_aliases_consistent():

@@ -185,10 +185,30 @@ def test_crosscheck_static_headroom_is_sound(dbs):
 
 
 def test_verify_under_a_shard_context_is_not_ported_yet(dbs):
-    pl = _planner(PORT, dbs[0], True)
-    pl.shard_ctx = object()
-    with pytest.raises(NotImplementedError):
-        pl.verify(tqueries.plan_q6())
+    """Shard contexts are logical in the port: verifying under one runs the
+    mesh lint and the ledger reconciliation, as in the JAX package
+    (tests/test_torch_sharded.py holds every query).  A context carrying a
+    device mesh — which the port cannot execute yet — is linted like the
+    reference's: a mesh whose axes disagree with the context is an error."""
+    import types
+
+    from repro.engine import sharded as jsharded
+    from repro_torch.engine import sharded as tsharded
+
+    mesh = types.SimpleNamespace(axis_names=("data",), shape={"data": 4})
+    out = []
+    for mods, S, db in ((PORT, tsharded, dbs[0]), (JAX, jsharded, dbs[1])):
+        pl = _planner(mods, db, True)
+        kw = dict(limbs=db.bk.limbs, ring_n=db.bk.slots)
+        pl.shard_ctx = S.ShardContext(2, None, limb_shards=4, **kw)
+        logical = _summary(pl.verify(mods["queries"].plan_q6()))
+        pl.shard_ctx = S.ShardContext(2, mesh, **kw)
+        meshed = _summary(pl.verify(mods["queries"].plan_q6()))
+        out.append((logical, meshed))
+    assert out[0] == out[1]
+    logical, meshed = out[0]
+    assert logical["ok"] and not logical["skipped"] and logical["findings"] == []
+    assert ("error", "mesh.data", "shard_ctx") in meshed["findings"] and not meshed["ok"]
 
 
 def test_cli_prints_what_the_reference_prints(capsys):
