@@ -32,13 +32,23 @@ gemma2-27b's full width and depth:
             2 prompts of 5120 tokens through the prefill step (every
             attention layer one flash_attn launch), then 16 greedy decode
             steps; first a float32 check at full width with 4 layers that
-            decode(prefill(x[:-1]), x[-1]) equals prefill(x)'s last logits.
+            decode(prefill(x[:-1]), x[-1]) equals prefill(x)'s last logits;
+  scan      the paper's encrypted-scan step (`launch/nshedb_step.query_step`)
+            at `configs/nshedb.CONFIG` (n = 32768, k = 32, t = 65537) on
+            64 blocks (2.1 M rows) for the scan_2m, scan_33m_pagg and
+            scan_33m_rs cells, every product and sum on the mul_mod /
+            add_mod kernels; one block's key switch, square, multiply
+            and rotation held exactly against plain versions;
+  mesh      four ranks sharing the card over gloo (CUDA tensors) on a
+            2 x 2 ("data", "model") mesh, each running Q1 at the paper's
+            parameters with the key switches gathered over "model" and
+            the fold summed over "data"; then one rank under NCCL.
 
     python3 chip_smoke.py            # needs one NVIDIA GPU and nvcc
 
 Output: one JSON object per line (`env`, `kernel_checks`, `micro`,
 `main`, `workload`, `shard`, `shard_chaos`, `serve_consistency`, `serve`,
-`kernels`),
+`scan`, `mesh`, `kernels`),
 the card's name and power limit as nvidia-smi prints them, and as the
 last line `{"ok": true, "device": {...}}`.  Any failed phase raises, so
 the exit code is non-zero and no result line is printed.
@@ -87,7 +97,8 @@ BFV_KERNELS = ("ntt_fwd", "ntt_inv", "mul_mod", "add_mod", "sub_mod")
 # the kernels each driven path must launch
 PATH_KERNELS = {"main": BFV_KERNELS, "workload_q1_bfv": BFV_KERNELS,
                 "workload_mock": ("rotate_reduce",), "shard_q1_bfv": BFV_KERNELS,
-                "shard_chaos_mock": ("rotate_reduce",), "serve": ("flash_attn",)}
+                "shard_chaos_mock": ("rotate_reduce",), "serve": ("flash_attn",),
+                "scan": ("mul_mod", "add_mod"), "mesh": BFV_KERNELS}
 # flash_attn against its plain version: the kernel and the dense version
 # sum in different orders (float32), and bfloat16 outputs round at 2^-8
 FLASH_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
@@ -210,23 +221,28 @@ def _ntt_cost(x, n: int, inverse: bool) -> tuple[int, int]:
     return 2 * x.numel() * E8, ops + (6 * x.numel() if inverse else 0)
 
 
-def _timed(name, fn, x, nbytes: int, nops: int) -> dict:
+def _timed(name, fn, x, nbytes: int, nops: int, plain=None) -> dict:
     """A kernel's call fn() against its plain version on the same inputs
     (exact), then its time on the card (`ms`), the time of back-to-back
     calls that the card waits for the host to issue (`issue_ms`: the
     wrapper's host cost where it exceeds the kernel's), the plain
-    version's and the bound."""
+    version's and the bound.  The plain version is `plain()`, or fn()
+    under `force_ref` (a LimbOps call) when None."""
     from repro_torch.core.limbops import force_ref
 
+    def plain_fn():
+        if plain is not None:
+            return plain()
+        with force_ref():
+            return fn()
+
     got = fn()
-    with force_ref():
-        exp = fn()
+    exp = plain_fn()
     err = _check_equal(name, got, exp, f"shape {tuple(x.shape)}")
     del got, exp
     ms = gpu_ms(fn, reps=10, inner=20)
     issue_ms = gpu_ms(fn, reps=10, inner=20, queued=False)
-    with force_ref():
-        plain_ms = gpu_ms(fn, reps=3, inner=2, warmup=1)
+    plain_ms = gpu_ms(plain_fn, reps=3, inner=2, warmup=1)
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = nops / PEAK_INT_OPS_PER_S * 1e3
     return {"shape": list(x.shape), "max_abs_err": err, "ms": ms, "issue_ms": issue_ms,
@@ -821,7 +837,7 @@ def workload_q1_bfv(bk, db) -> dict:
     idle = [name for name in BFV_KERNELS if launches[name] <= 0]
     if idle:
         raise AssertionError(f"Q1 on BFV launched no {idle} kernel")
-    return launches
+    return launches, run["op_stats"]
 
 
 def workload_mock() -> dict:
@@ -1327,6 +1343,316 @@ def phase_serve(profile: bool = False) -> dict:
     return launches
 
 
+# -------------------------------------------------------------------- scan
+# the paper's scan cells (configs/nshedb.SHAPES) at CONFIG's full width
+# (n = 32768, k = 32, t = 65537) on scan_2m's 64 blocks: the scan_33m cells
+# take 1024 blocks, which one card cannot hold (2 x 16 GiB of inputs and
+# 16 x 2 GiB of working set a pass), so they run at the same 64 blocks
+SCAN_CELLS = ("scan_2m", "scan_33m_pagg", "scan_33m_rs")
+SCAN_BLOCKS = 64
+
+
+def _plain_step(tabs):
+    """ct_square, ct_mul and rotate of one block in plain int64 torch ops
+    over the u32 primitives (kernels/u32.py: barrett_mulmod, add_mod) and
+    the key switch as a direct contraction: the yardstick of the kernels'
+    path."""
+    from repro_torch.kernels import u32
+
+    q, mu = tabs.q[:, None], tabs.mu64[:, None]
+    mul = lambda a, b: u32.barrett_mulmod(a, b, q, mu)
+    add = lambda a, b: u32.add_mod(a, b, q)
+
+    def ks(poly, kb, ka):
+        return tuple((poly[:, None] * key % q).sum(0) % q for key in (kb, ka))
+
+    def square(ct, kb, ka):
+        d1 = mul(ct[0], ct[1])
+        ks0, ks1 = ks(mul(ct[1], ct[1]), kb, ka)
+        return torch.stack([add(mul(ct[0], ct[0]), ks0), add(add(d1, d1), ks1)])
+
+    def ct_mul(a, b, kb, ka):
+        ks0, ks1 = ks(mul(a[1], b[1]), kb, ka)
+        return torch.stack([add(mul(a[0], b[0]), ks0),
+                            add(add(mul(a[0], b[1]), mul(a[1], b[0])), ks1)])
+
+    def rotate(ct, perm, kb, ka):
+        rot = ct[..., perm]
+        ks0, ks1 = ks(rot[1], kb, ka)
+        return torch.stack([add(rot[0], ks0), ks1])
+
+    return ks, square, ct_mul, rotate
+
+
+def _scan_checks(S, consts, col, val, keys) -> dict:
+    """One block through the kernels against the plain versions, exactly:
+    `keyswitch` of a reduced residue and of digits above every key
+    limb's prime (the unreduced digits the scan step feeds it), then
+    `ct_square`, `ct_mul` and `rotate`."""
+    tabs, perm = consts["tabs"], consts["perm"]
+    ks, square, ct_mul, rotate = _plain_step(tabs)
+    rlk_b, rlk_a, gk_b, gk_a = keys
+    rng = np.random.default_rng(SEED + 1)
+    big = torch.from_numpy(rng.integers(int(tabs.q.max()), 1 << 30, tuple(col.shape[1:]))).cuda()
+    errs = {}
+    for what, poly in (("reduced", col[1]), ("above_key_primes", big)):
+        got, exp = S.keyswitch(poly, rlk_b, rlk_a, tabs), ks(poly, rlk_b, rlk_a)
+        errs[f"keyswitch_{what}"] = max(_check_equal("keyswitch", g, e, what)
+                                        for g, e in zip(got, exp))
+    errs["ct_square"] = _check_equal("ct_square", S.ct_square(col, rlk_b, rlk_a, tabs),
+                                     square(col, rlk_b, rlk_a), "one block")
+    errs["ct_mul"] = _check_equal("ct_mul", S.ct_mul(col, val, rlk_b, rlk_a, tabs),
+                                  ct_mul(col, val, rlk_b, rlk_a), "one block")
+    errs["rotate"] = _check_equal("rotate", S.rotate(col, perm, gk_b, gk_a, tabs),
+                                  rotate(col, perm, gk_b, gk_a), "one block")
+    return errs
+
+
+def _scan_kernel_times(by_shape, tabs) -> dict:
+    """mul_mod and add_mod timed at the scan path's shapes that move the
+    most bytes (launches x rows): the key switch's digit products and the
+    first round of its digit fold (`tabs`: the step's LimbTables)."""
+    from repro_torch.kernels.modops import ops, ref
+
+    k, n = tabs.k, tabs.n
+    rng = np.random.default_rng(SEED + 2)
+    q = tabs.q.cpu().numpy()[:, None]
+    out = {}
+    for name, per_elem in (("mul_mod", 8), ("add_mod", 3)):
+        (rows, rows_b), launches = max(by_shape[name].items(), key=lambda kv: kv[0][0] * kv[1])
+        a = torch.from_numpy(rng.integers(0, q, (rows // k, k, n))).cuda()
+        b = torch.from_numpy(rng.integers(0, q, (rows_b // k, k, n))).cuda()
+        kern, plain = getattr(ops, name), getattr(ref, f"{name}_ref")
+        rec = _timed(name, lambda kern=kern, a=a, b=b: kern(a, b, tabs), a,
+                     (2 * a.numel() + b.numel()) * E8, per_elem * a.numel(),
+                     plain=lambda plain=plain, a=a, b=b: plain(a, b, tabs.q))
+        rec["launches_at_shape"] = launches
+        out[name] = {f"{rows}/{rows_b}": rec}
+        del a, b
+    return out
+
+
+def phase_scan() -> tuple[dict, dict]:
+    """`nshedb_step.query_step` — EQ mask (16 squarings), a multiply and
+    the rotate-reduce, every step a key switch — at CONFIG on 64 blocks
+    (2.1 M rows), for scan_2m and the scan_33m_pagg / scan_33m_rs
+    settings; residues drawn from the seed.  Returns the launch counts
+    summed over the three runs (each set to 0 just before its run and read
+    just after) and the kernels' times at the path's shapes."""
+    from repro_torch import kernels
+    from repro_torch.configs.nshedb import CONFIG, SHAPES
+    from repro_torch.launch import nshedb_step as S
+
+    cfg = CONFIG
+    t0 = clock()
+    consts = S.make_constants(cfg, device="cuda")
+    tabs, perm = consts["tabs"], consts["perm"]
+    q = tabs.q.cpu().numpy()[:, None]
+    rng = np.random.default_rng(SEED)
+    draw = lambda *lead: torch.from_numpy(rng.integers(0, q, lead + (cfg.k, cfg.n))).cuda()
+    cts_col, cts_val = draw(SCAN_BLOCKS, 2), draw(SCAN_BLOCKS, 2)
+    keys = [draw(cfg.k) for _ in range(4)]
+    setup_s = clock() - t0
+    checks = _scan_checks(S, consts, cts_col[0], cts_val[0], keys)
+
+    runs, outs, launches, by_shape = {}, {}, {}, {}
+    for cell in SCAN_CELLS:
+        spec = SHAPES[cell]
+        rot = spec.get("rot_steps", cfg.rot_steps)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        chunk = S.default_chunk(cts_col, cfg.k)
+        kernels.reset_launch_counts()
+        t0 = clock()
+        outs[cell] = S.query_step(cts_col, cts_val, *keys, tabs, perm, eq_levels=cfg.eq_levels,
+                                  rot_steps=rot, ks_mode=spec.get("ks_mode"), chunk=chunk)
+        secs = clock() - t0
+        counts = kernels.launch_counts()
+        shapes = modops_launches_by_shape()
+        for name, n_ in counts.items():
+            launches[name] = launches.get(name, 0) + n_
+        for name in ("mul_mod", "add_mod"):
+            for key, n_ in shapes[name].items():
+                rows = tuple(int(x) for x in key.split("/"))
+                by_shape.setdefault(name, {})[rows] = by_shape.get(name, {}).get(rows, 0) + n_
+        runs[cell] = {
+            "nblocks": SCAN_BLOCKS, "rows": SCAN_BLOCKS * cfg.n,
+            "cut": None if spec["nblocks"] == SCAN_BLOCKS else
+            f"{spec['nblocks']} -> {SCAN_BLOCKS} blocks: one card (the cell's inputs "
+            f"alone are {spec['nblocks'] * 2 * 2 * cfg.k * cfg.n * E8 / 2**30:.0f} GiB)",
+            "eq_levels": cfg.eq_levels, "rot_steps": rot, "ks_mode": spec.get("ks_mode") or S.KS_MODE,
+            "key_switches_per_block": cfg.eq_levels + 1 + rot, "chunk": chunk,
+            "query_s": secs, "s_per_block": secs / SCAN_BLOCKS,
+            "kernel_launches": {k: v for k, v in counts.items() if v},
+            "modops_launches_by_shape": {k: v for k, v in shapes.items() if v},
+            "peak_device_bytes": torch.cuda.max_memory_allocated()}
+    bad = [cell for cell, out in outs.items()
+           if tuple(out.shape) != (2, cfg.k, cfg.n) or not bool(((out >= 0) & (out < tabs.q[:, None])).all())]
+    rs_equal = torch.equal(outs["scan_33m_rs"], outs["scan_2m"])
+    rec = {"config": dataclasses.asdict(cfg), "setup_s": round(setup_s, 3),
+           "exact_checks_max_abs_err": checks, "outputs_below_q": not bad,
+           "rs_equal_all_gather": rs_equal, "runs": runs}
+    emit("scan", rec)
+    if bad or not rs_equal:
+        raise AssertionError(f"scan: outputs out of range in {bad}, rs == all_gather: {rs_equal}")
+    idle = [k for k in ("mul_mod", "add_mod") if launches.get(k, 0) <= 0]
+    if idle:
+        raise AssertionError(f"scan launched no {idle} kernel")
+    del cts_col, cts_val, keys, outs, consts, perm
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, _scan_kernel_times(by_shape, tabs)
+
+
+# -------------------------------------------------------------------- mesh
+MESH_GRID = (2, 2)           # ("data", "model"): k = 30 splits over model = 2
+MESH_DIR = os.path.join(HERE, ".scratch", "mesh")
+MESH_TIMEOUT_S = 900         # rendezvous, each collective, and the joins
+
+
+def _mesh_q1(expect_stats) -> dict:
+    """One rank's TPC-H Q1 at `paper_params()` on LINEITEM 32768 rows on
+    a real ("data", "model") mesh (CUDA tensors, gloo): the same keys and
+    table in every rank (seeded), key switches gathered over "model"."""
+    from repro_torch.core.params import paper_params
+    from repro_torch.engine import queries
+    from repro_torch.engine.planner import Planner
+
+    bk, db, secs = load_paper_lineitem(paper_params())
+    pl = Planner(db, optimized=True, shards=MESH_GRID[0], limb_shards=MESH_GRID[1])
+    mesh = pl.shard_ctx.mesh
+    run = _q1_via_plan(bk, pl)
+    ledger = pl.shard_ctx.ledger_snapshot()
+    exp = queries.oracle_q1(db)
+    bad = []
+    if mesh is None or pl.shard_ctx.limb_mesh is None or mesh.device_type != "cuda":
+        bad.append(f"no real CUDA query mesh: {mesh}")
+    if run["got"] != exp or sum(len(row) for row in run["got"].values()) != 48:
+        bad.append(f"decrypts {run['got']} != oracle_q1 {exp}")
+    if expect_stats is not None and run["op_stats"] != expect_stats:
+        bad.append(f"OpStats {run['op_stats']} != unsharded {expect_stats}")
+    if run["op_stats"]["refresh"] != 0 or not ledger["gather_bytes"] > 0:
+        bad.append(f"refresh {run['op_stats']['refresh']}, gather bytes {ledger['gather_bytes']}")
+    return {"mesh": {"device_type": mesh.device_type, "shape": list(mesh.shape),
+                     "axes": list(mesh.mesh_dim_names)} if mesh is not None else None,
+            "keygen_s": round(secs["keygen"], 3), "load_encrypt_s": round(secs["load_encrypt"], 3),
+            "query_s": run["query_s"], "stage_s": {k: round(v, 3) for k, v in run["secs"].items()},
+            "equal_to_oracle": run["got"] == exp, "op_stats": run["op_stats"],
+            "ledger": {k: ledger[k] for k in ("gathers", "gather_bytes", "folds", "real_mesh")},
+            "kernel_launches": run["launches"], "peak_device_bytes": run["peak_device_bytes"],
+            "failures": bad}
+
+
+def _mesh_nccl() -> dict:
+    """One rank under NCCL (a 1 x 1 mesh): `kswitch_gathered` of a 5-lane
+    batch and `sharded_fold` at `paper_params()` against the one-device
+    key switch and sum."""
+    from repro_torch.core.bfv import BFVContext
+    from repro_torch.core.params import paper_params
+    from repro_torch.engine.sharded import sharded_fold
+    from repro_torch.launch.mesh import make_query_mesh
+
+    paper = paper_params()
+    ctx = BFVContext(paper, seed=SEED)
+    rlk = ctx.keygen(galois_steps=()).rlk
+    poly = _rand_limbs(np.random.default_rng(SEED), paper.Q.primes, (LANES,), paper.n, "cuda")
+    mesh = make_query_mesh(1, 1)
+    got = ctx.kswitch_gathered(poly, rlk, mesh)
+    exp = ctx._kswitch_inner(poly, rlk.b, rlk.a)
+    data = torch.stack([poly, poly.flip(0)], dim=1)
+    return {"mesh": {"device_type": mesh.device_type, "shape": list(mesh.shape)},
+            "kswitch_gathered_equal": all(torch.equal(g, e) for g, e in zip(got, exp)),
+            "sharded_fold_equal": torch.equal(sharded_fold(data, 3, mesh), data[:3].sum(0)),
+            "failures": []}
+
+
+def _mesh_rank(rank: int, world: int, backend: str, expect_stats) -> None:
+    """A rank process: join the group (file rendezvous under MESH_DIR),
+    run its part, write its record (or its traceback) there."""
+    import datetime
+    import traceback
+
+    import torch.distributed as dist
+    torch.set_num_threads(2)
+    path = os.path.join(MESH_DIR, f"{backend}.{rank}")
+    try:
+        dist.init_process_group(backend, init_method=f"file://{MESH_DIR}/{backend}.rendezvous",
+                                rank=rank, world_size=world,
+                                timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+        rec = _mesh_q1(expect_stats) if backend == "gloo" else _mesh_nccl()
+        with open(path + ".json", "w") as f:
+            json.dump(rec, f)
+    except BaseException:
+        with open(path + ".err", "w") as f:
+            f.write(traceback.format_exc())
+        raise
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _run_ranks(world: int, backend: str, expect_stats=None) -> list:
+    """Start `world` rank processes, wait for all (killing any still alive
+    after MESH_TIMEOUT_S) and return their records; raise on any failure."""
+    import multiprocessing
+    spawn = multiprocessing.get_context("spawn")
+    procs = [spawn.Process(target=_mesh_rank, args=(r, world, backend, expect_stats))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + MESH_TIMEOUT_S
+    for p in procs:
+        p.join(max(deadline - time.monotonic(), 0))
+    hung = [r for r, p in enumerate(procs) if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join(30)
+    recs, bad = [], []
+    for r, p in enumerate(procs):
+        base = os.path.join(MESH_DIR, f"{backend}.{r}")
+        if os.path.exists(base + ".json"):
+            with open(base + ".json") as f:
+                recs.append(json.load(f))
+            bad += [f"{backend} rank {r}: {msg}" for msg in recs[-1]["failures"]]
+        elif os.path.exists(base + ".err"):
+            with open(base + ".err") as f:
+                bad.append(f"{backend} rank {r} raised:\n{f.read()}")
+        else:
+            bad.append(f"{backend} rank {r} {'hung' if r in hung else f'exited {p.exitcode}'}")
+    if bad:
+        raise AssertionError("mesh phase: " + "\n".join(bad))
+    return recs
+
+
+def phase_mesh(expect_stats) -> dict:
+    """Four ranks sharing the card over gloo on a 2 x 2 ("data", "model")
+    mesh, each running Q1 on real ciphertexts (every rank equal to the
+    oracle, OpStats equal to the unsharded run's), then one rank under
+    NCCL.  Returns the launch counts of the four ranks' queries, summed."""
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    os.makedirs(MESH_DIR)
+    t0 = time.perf_counter()
+    world = MESH_GRID[0] * MESH_GRID[1]
+    recs = _run_ranks(world, "gloo", expect_stats)
+    gloo_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    nccl = _run_ranks(1, "nccl")[0]
+    launches = {}
+    for rec in recs:
+        for name, n_ in rec["kernel_launches"].items():
+            launches[name] = launches.get(name, 0) + n_
+    emit("mesh", {"grid": list(MESH_GRID), "backend": "gloo", "tensors": "cuda",
+                  "phase_s": round(gloo_s, 3), "ranks": recs,
+                  "nccl_1x1": nccl, "nccl_s": round(time.perf_counter() - t0, 3),
+                  "kernel_launches": launches})
+    if not (nccl["kswitch_gathered_equal"] and nccl["sharded_fold_equal"]):
+        raise AssertionError(f"mesh phase: NCCL 1 x 1 run disagrees: {nccl}")
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    return launches
+
+
 KERNEL_META = {
     "ntt_fwd": ("src/repro_torch/kernels/csrc/ntt.cu", "src/repro/kernels/ntt/ntt.py:68"),
     "ntt_inv": ("src/repro_torch/kernels/csrc/ntt.cu", "src/repro/kernels/ntt/ntt.py:92"),
@@ -1338,7 +1664,7 @@ KERNEL_META = {
     "flash_attn": ("src/repro_torch/kernels/csrc/flash_attn.cu",
                    "src/repro/kernels/flash_attn/flash_attn.py:74"),
 }
-PHASES = ("kernels", "micro", "main", "workload", "shard", "serve")
+PHASES = ("kernels", "micro", "main", "workload", "shard", "serve", "scan", "mesh")
 
 
 def main() -> None:
@@ -1361,6 +1687,7 @@ def main() -> None:
 
     from repro_torch.core.params import paper_params
     from repro_torch.engine.backend import BFVBackend
+    from repro_torch.engine.planner import Planner
 
     phase_env()
     paper = paper_params() if phases & {"kernels", "main", "workload", "shard"} else None
@@ -1369,13 +1696,13 @@ def main() -> None:
         phase_micro()
     # launch counts per driven path, each set to 0 just before it runs
     by_path = {}
-    bk = db = None
+    bk = db = q1_stats = None
     if "main" in phases:
         by_path["main"], bk, db = phase_main(paper, profile=args.profile)
     if "workload" in phases:
         if bk is None:           # reuse main's keys and table when main ran
             bk, db, _ = load_paper_lineitem(paper)
-        by_path["workload_q1_bfv"] = workload_q1_bfv(bk, db)
+        by_path["workload_q1_bfv"], q1_stats = workload_q1_bfv(bk, db)
         by_path["workload_mock"] = workload_mock()
     db = None                    # the shard phase loads its own table
     if "shard" in phases:
@@ -1391,6 +1718,21 @@ def main() -> None:
         gc.collect()
         torch.cuda.empty_cache()
         by_path["serve"] = phase_serve(profile=args.profile)
+    if "scan" in phases:
+        bk = db = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        by_path["scan"], scan_times = phase_scan()
+        for name, at in scan_times.items():
+            timings.setdefault(name, {}).setdefault("at_shapes", {}).update(at)
+    if "mesh" in phases:
+        if q1_stats is None:     # the unsharded Q1's OpStats, when workload did not run
+            bk, db, _ = load_paper_lineitem(paper_params())
+            q1_stats = _q1_via_plan(bk, Planner(db, optimized=True))["op_stats"]
+        bk = db = None           # the four ranks hold ~13 GB each
+        gc.collect()
+        torch.cuda.empty_cache()
+        by_path["mesh"] = phase_mesh(q1_stats)
 
     records = []
     for name, (source, replaces) in KERNEL_META.items():

@@ -2,12 +2,14 @@
 
 The 40 dry-run cells are (arch x its shape set); ``long_500k`` runs only
 for sub-quadratic architectures (SSM / recurrent / local-dominated) and
-is recorded as SKIP(full-attention) for the rest.  `input_specs`, the
-dry-run's shape stand-ins, is not ported yet.
+is recorded as SKIP(full-attention) for the rest.  `input_specs` gives
+each cell's inputs as meta tensors (shapes and dtypes, no storage).
 """
 from __future__ import annotations
 
 import importlib
+
+import torch
 
 from ..models.config import ModelConfig
 
@@ -60,7 +62,39 @@ def shape_cells(arch: str) -> list[tuple[str, str | None]]:
     return out
 
 
-def input_specs(cfg: ModelConfig, shape: str, dtype=None) -> dict:
-    """Shape stand-ins for every model input of one dry-run cell."""
-    raise NotImplementedError("input_specs belongs to the dry-run, which the "
-                              "port does not have yet")
+def input_specs(cfg: ModelConfig, shape: str, dtype=torch.bfloat16) -> dict:
+    """Meta-tensor stand-ins (`device="meta"`) for every model input of
+    one cell, under the reference's keys and shapes.
+
+    train  : tokens + labels (+ frontend stubs)
+    prefill: tokens (+ stubs) — builds the cache
+    decode : one new token + a filled cache of seq_len context
+    """
+    info = SHAPES[shape]
+    S, B, kind = info["seq"], info["batch"], info["kind"]
+    d = cfg.d_model
+    tok = lambda b, s: torch.empty((b, s), dtype=torch.int32, device="meta")
+    emb = lambda b, s: torch.empty((b, s, d), dtype=dtype, device="meta")
+
+    specs: dict = {"kind": kind, "seq": S, "batch": B}
+    if kind == "train":
+        specs["tokens"] = tok(B, S)
+        specs["labels"] = tok(B, S)
+        if cfg.frontend == "vision":
+            from .phi_3_vision_4_2b import N_PATCHES
+            specs["patches"] = emb(B, N_PATCHES)
+        if cfg.is_enc_dec:
+            specs["enc_embeds"] = emb(B, max(S // 4, 128))
+    elif kind == "prefill":
+        specs["tokens"] = tok(B, S)
+        if cfg.frontend == "vision":
+            from .phi_3_vision_4_2b import N_PATCHES
+            specs["patches"] = emb(B, N_PATCHES)
+        if cfg.is_enc_dec:
+            specs["enc_embeds"] = emb(B, max(S // 4, 128))
+    else:  # decode: one token against a seq_len cache
+        specs["tokens"] = tok(B, 1)
+        specs["cache_len"] = S
+        if cfg.is_enc_dec:
+            specs["enc_embeds"] = emb(B, max(S // 4, 128))
+    return specs

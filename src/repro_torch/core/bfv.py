@@ -25,6 +25,11 @@ same pointwise kernels over the (2, k, n) payload.  Everything else
 (base conversion, digit decomposition, the Galois gather, scalar ops) is
 plain tensor code on the context's device.
 
+On a ("data", "model") device mesh (launch/mesh.py) every rank runs the
+same program on the same state; only the key switch splits its work by
+rank (`kswitch_gathered`) and gathers the result back, so every rank
+ends with the bytes one device computes.
+
 Tensors are never updated in place once they are part of a ciphertext:
 handles are aliased by the engine's mask cache, so ops that rewrite one
 component clone first.
@@ -40,14 +45,11 @@ import math
 import numpy as np
 import torch
 
-from .limbops import LimbOps
+from ..launch.mesh import axis_index, gather_axis, mesh_axes
+from .limbops import LimbLocalOps, LimbOps
 from .mathutil import centered, crt_reconstruct
 from .noise import NoiseModel
 from .params import HEParams
-
-_MESH_MSG = ("mesh-sharded key-switching (kswitch_gathered) arrives with the "
-             "port of the sharded execution slice")
-
 
 @dataclasses.dataclass
 class Ciphertext:
@@ -176,6 +178,7 @@ class BFVContext:
         cqp, cpq = p.conv_q_to_p, p.conv_p_to_q
         self.c_qp = self._conv(cqp)
         self.c_pq = self._conv(cpq)
+        self._local_ops: dict[tuple[int, int], LimbLocalOps] = {}
         self._galois_tabs = {
             g: (torch.from_numpy(tab.src.astype(np.int64)).to(dev),
                 _i64(tab.sign, dev))
@@ -418,10 +421,17 @@ class BFVContext:
 
     # ------------------------------------------------------- ct-ct multiply
     def mul(self, a, b, rlk: KSwitchKey, mesh=None):
-        """HPS tensor + relinearization."""
-        if mesh is not None:
-            raise NotImplementedError(_MESH_MSG)
-        data = self._mul_impl(a.data, b.data, rlk.b, rlk.a)
+        """HPS tensor + relinearization.  With a 2-D query mesh the relin
+        key-switch all-gathers its decomposition digits over the mesh
+        "model" axis (`kswitch_gathered`) — the same bytes, a different
+        collective structure."""
+        if mesh is None:
+            data = self._mul_impl(a.data, b.data, rlk.b, rlk.a)
+        else:
+            r0, r1, r2 = self._mul_tensor_impl(a.data, b.data)
+            ks0, ks1 = self.kswitch_gathered(r2, rlk, mesh)
+            q = self.qQ[:, None]
+            data = torch.stack([(r0 + ks0) % q, (r1 + ks1) % q], dim=-3)
         nz = self.noise_model
         return self._like(self._pick(a, b), data,
                           nz.keyswitch(nz.mul(a.noise, b.noise)))
@@ -483,8 +493,53 @@ class BFVContext:
         return lq.intt(acc_b), lq.intt(acc_a)
 
     def kswitch_gathered(self, poly, ksk: KSwitchKey, mesh):
-        """`_kswitch_inner` on a 2-D ("data", "model") mesh."""
-        raise NotImplementedError(_MESH_MSG)
+        """`_kswitch_inner` on a ("data", "model") device mesh.
+
+        Each rank takes its (kL = k/M)-limb slice of `poly` (and its
+        lanes of a batch whose size the data axis divides), centres its
+        digits and all-gathers them along "model" — k*n int64 per block,
+        the minimal cross-limb payload.  It then reduces the gathered
+        digits mod its own primes, NTTs them with its slice's tables,
+        multiplies by the key's output-limb slice (KSwitchKey axis 1),
+        sums over the whole digit axis and INTTs; the outputs all-gather
+        back along "model" (and "data") into the replicated layout.
+        Exact int64 throughout, so the result is byte-identical to the
+        one-device path.  A rank outside the mesh computes that path."""
+        axes = mesh_axes(mesh)
+        if mesh.get_coordinate() is None:
+            return self._kswitch_inner(poly, ksk.b, ksk.a)
+        k, n = self.params.k, self.params.n
+        M, D = axes.get("model", 1), axes.get("data", 1)
+        if k % M:
+            raise ValueError(f"k={k} limbs do not split over a model axis of {M}")
+        B = math.prod(poly.shape[:-2])
+        p3 = poly.reshape(B, k, n)
+        if B > 1 and B % D == 0:           # lanes over "data"
+            per = B // D
+            p3 = p3[axis_index(mesh, "data") * per:][:per]
+        kl = k // M
+        lo = axis_index(mesh, "model") * kl
+        ops = self._limb_slice(lo, lo + kl)
+        ql = ops.q
+        part = p3[:, lo:lo + kl]
+        cent = part - ql[:, None] * (part > (ql // 2)[:, None])       # (Bl, kL, n)
+        gath = gather_axis(cent, mesh, "model", dim=1)                 # (Bl, k, n)
+        d_ntt = ops.ntt(gath[:, :, None, :] % ql[None, None, :, None])  # (Bl, k, kL, n)
+        outs = []
+        for key in (ksk.b, ksk.a):
+            acc = torch.sum(ops.mul(d_ntt, key[:, lo:lo + kl]), dim=1) % ql[:, None]
+            outs.append(ops.intt(acc))
+        both = gather_axis(torch.stack(outs), mesh, "model", dim=2)   # (2, Bl, k, n)
+        if both.shape[1] != B:
+            both = gather_axis(both, mesh, "data", dim=1)
+        return both[0].reshape(poly.shape), both[1].reshape(poly.shape)
+
+    def _limb_slice(self, lo: int, hi: int) -> LimbLocalOps:
+        """The ops of ciphertext limbs [lo, hi), built once per slice."""
+        if (lo, hi) not in self._local_ops:
+            self._local_ops[lo, hi] = LimbLocalOps(self.params.Q, lo, hi,
+                                                   device=self.device)
+        return self._local_ops[lo, hi]
 
     # ------------------------------------------------------------ rotation
     def _apply_galois_impl(self, data, g: int):
@@ -492,10 +547,11 @@ class BFVContext:
         return (sign * data[..., src]) % self.qQ[:, None]
 
     def apply_galois(self, ct, g: int, gk: KSwitchKey, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(_MESH_MSG)
         rot = self._apply_galois_impl(ct.data, g)
-        ks0, ks1 = self._kswitch_inner(rot[..., 1, :, :], gk.b, gk.a)
+        if mesh is None:
+            ks0, ks1 = self._kswitch_inner(rot[..., 1, :, :], gk.b, gk.a)
+        else:
+            ks0, ks1 = self.kswitch_gathered(rot[..., 1, :, :], gk, mesh)
         c0 = (rot[..., 0, :, :] + ks0) % self.qQ[:, None]
         return self._like(ct, torch.stack([c0, ks1], dim=-3),
                           self.noise_model.rotate(ct.noise))
@@ -561,14 +617,18 @@ class BFVContext:
         bound replays the same sequential `add` recurrence.  Only the
         `live` lanes participate: shard padding lanes may hold garbage
         after broadcasted single×batch ops and must never enter a sum."""
-        nb = batch.nblocks
-        data = torch.sum(batch.data[:nb], dim=0) % self.qQ[:, None]
+        data = torch.sum(batch.data[:batch.nblocks], dim=0) % self.qQ[:, None]
+        return Ciphertext(data, self.fold_noise(batch), self.params)
+
+    def fold_noise(self, batch: CiphertextBatch) -> float:
+        """The noise bound of a batch's fold: the sequential `add`
+        recurrence over its live lanes."""
         per = batch.noise if np.ndim(batch.noise) else None
         noise = float(per[0]) if per is not None else batch.noise
-        for i in range(1, nb):
+        for i in range(1, batch.nblocks):
             noise = self.noise_model.add(
                 noise, float(per[i]) if per is not None else batch.noise)
-        return Ciphertext(data, noise, self.params)
+        return noise
 
     # ------------------------------------------------------- noise measure
     def noise_budget_exact(self, ct: Ciphertext, sk: SecretKey) -> float:

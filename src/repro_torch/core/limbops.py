@@ -23,11 +23,15 @@ column of ciphertext blocks runs as one kernel launch.
 
 `force_ref()` routes every primitive through the plain versions for the
 duration, on whatever device the tensors lie: the explicit request of a
-caller that wants the plain arithmetic (tests, the later sharded slice).
+caller that wants the plain arithmetic (tests).
+
+`LimbLocalOps` is the same over a contiguous slice of a base's limbs: what
+one rank of a mesh's "model" axis runs between the key switch's gathers.
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 
 from ..kernels.modops import ops as mod_ops
 from ..kernels.modops import ref as mod_ref
@@ -96,3 +100,21 @@ class LimbOps:
         if _FORCE_REF:
             return ntt_ref.ntt_inv_ref(a, self.ipsi, self.ninv, self.q)
         return ntt_ops.ntt_inv(a, self.tabs)
+
+
+class LimbLocalOps(LimbOps):
+    """The primitives of limbs [lo, hi) of one base on one device:
+    ntt, intt and mul (and add, sub) on a (..., hi - lo, n) slice, with
+    the slice's own tables (core/bfv.py: kswitch_gathered).  Dispatch is
+    LimbOps': a CUDA tensor goes to the kernels, a CPU tensor to the
+    plain versions."""
+
+    def __init__(self, tables: NttTables, lo: int, hi: int, device="cuda"):
+        if not 0 <= lo < hi <= len(tables.primes):
+            raise ValueError(f"limb slice [{lo}, {hi}) outside a base of "
+                             f"{len(tables.primes)} limbs")
+        super().__init__(dataclasses.replace(
+            tables, primes=tuple(tables.primes[lo:hi]), q=tables.q[lo:hi],
+            psi_rev=tables.psi_rev[lo:hi], ipsi_rev=tables.ipsi_rev[lo:hi],
+            n_inv=tables.n_inv[lo:hi]), device=device)
+        self.lo, self.hi = lo, hi

@@ -32,8 +32,11 @@ Sharded execution (engine/sharded.py, DESIGN §4): when a shard context
 is active on the backend, `stack_blocks` pads lane counts to a multiple
 of the shard count with zero blocks (`live` on the batch keeps stats,
 noise and decrypt on the logical count) and every charge is mirrored
-into the context's distributed/replicated cost ledger.  Contexts that
-carry a real device mesh are not supported yet and raise.
+into the context's distributed/replicated cost ledger.  With a real
+device mesh attached the batch is placed on it and the block fold runs
+shard-local with an all-reduce over "data" (`sharded.sharded_fold`);
+key switches all-gather their digits over "model" (BFV only: the Mock
+backend keeps the mesh in the ledger layer).
 
 Both count operations in OpStats and track (noise, depth) per value, so
 the planner's predictions are validated against the same model regardless
@@ -56,11 +59,6 @@ from ..runtime import faults
 from ..core.encoder import BatchEncoder
 from ..core.noise import NoiseModel, NoiseProfile, paper_profile
 from ..core.params import HEParams
-
-_MESH_MSG = ("shard contexts with a real device mesh need collectives across "
-             "devices, which this package does not have yet; contexts are "
-             "logical (mesh=None)")
-
 
 @dataclasses.dataclass
 class OpStats:
@@ -273,6 +271,7 @@ class BFVBackend(_BackendBase):
         self.t = params.t
         self.slots = params.n
         self.ctx = BFVContext(params, seed=seed, device=device)
+        self.device = self.ctx.device
         self.keys: Keys = self.ctx.keygen()
         self.enc = BatchEncoder(params)
         self.model = self.ctx.noise_model
@@ -305,21 +304,22 @@ class BFVBackend(_BackendBase):
 
         Under an active ShardContext the lane count is padded up to a
         multiple of the shard count with zero blocks (exact additive
-        identities; `live` keeps accounting on the logical count) —
+        identities; `live` keeps accounting on the logical count) and
+        the batch is placed on the mesh when a real one is attached —
         uneven tables compile to one even launch."""
         batch = self.ctx.stack_cts(blocks)
         ctx = self.shard_ctx
         if (ctx is not None and len(blocks) > 1
                 and (ctx.shards > 1 or ctx.limb_mesh is not None)):
-            from .sharded import pad_to
-            if ctx.mesh is not None:
-                raise NotImplementedError(_MESH_MSG)
+            from .sharded import pad_to, place_batch
             nphys = pad_to(len(blocks), ctx.shards)
             data = batch.data
             if nphys > len(blocks):
                 pad = torch.zeros_like(batch.data[:1])
                 data = torch.cat(
                     [batch.data] + [pad] * (nphys - len(blocks)))
+            if ctx.mesh is not None:
+                data = place_batch(data, ctx.mesh)
             batch = CiphertextBatch(data, batch.noise, batch.params,
                                     live=len(blocks))
         return self._set_d(batch, max(self._d(b) for b in blocks))
@@ -330,7 +330,9 @@ class BFVBackend(_BackendBase):
 
     def fold_blocks(self, batch: CiphertextBatch) -> Ciphertext:
         """Cross-block sum of a batch (the inter-block half of SUM/COUNT).
-        Charges the same nblocks-1 adds as the sequential fold."""
+        Charges the same nblocks-1 adds as the sequential fold.  With a
+        real mesh attached the reduction runs shard-local and combines
+        partials with an all-reduce over "data" (engine/sharded.py)."""
         faults.maybe_device_loss("fold")
         ctx = self.shard_ctx
         self.stats.add += max(batch.nblocks - 1, 0)
@@ -339,9 +341,13 @@ class BFVBackend(_BackendBase):
             # ledger: shard-local adds + one psum tree (record_fold owns
             # the split; stats.add above stays the sequential-fold charge)
             ctx.record_fold(batch.nblocks, self._nblocks_phys(batch))
-        if ctx is not None and ctx.mesh is not None:
-            raise NotImplementedError(_MESH_MSG)
-        out = self.ctx.fold_add(batch)
+        if (ctx is not None and ctx.mesh is not None
+                and batch.nphys % ctx.shards == 0 and batch.nphys > 1):
+            from .sharded import sharded_fold
+            data = sharded_fold(batch.data, batch.nblocks, ctx.mesh) % self.ctx.qQ[:, None]
+            out = Ciphertext(data, self.ctx.fold_noise(batch), batch.params)
+        else:
+            out = self.ctx.fold_add(batch)
         return self._set_d(out, self._d(batch))
 
     # -- io ----------------------------------------------------------------

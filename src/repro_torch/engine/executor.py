@@ -753,7 +753,8 @@ def run_via_plan(planner, plan: QueryPlan, validate: bool = True,
             shards if shards is not None else 1,
             limb_shards=limb_shards if limb_shards is not None else 1,
             limbs=getattr(planner.bk, "limbs", None),
-            ring_n=getattr(planner.bk, "slots", 0))
+            ring_n=getattr(planner.bk, "slots", 0),
+            device=getattr(planner.bk, "device", None))
         try:
             return Executor(planner).run(plan, validate=validate)
         finally:

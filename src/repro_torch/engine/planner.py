@@ -103,7 +103,8 @@ class Planner:
                 shards if shards is not None else 1, mesh,
                 limb_shards=limb_shards if limb_shards is not None else 1,
                 limbs=getattr(self.bk, "limbs", None),
-                ring_n=getattr(self.bk, "slots", 0))
+                ring_n=getattr(self.bk, "slots", 0),
+                device=getattr(self.bk, "device", None))
         else:
             self.shard_ctx = None
         # Noise-aware mask store shared by every compiled mask: WHERE

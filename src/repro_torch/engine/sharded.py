@@ -18,11 +18,12 @@ Two orthogonal axes of parallelism, on one 2-D `("data", "model")` grid:
 This module owns the runtime plumbing:
 
 * `ShardContext` — the per-run distribution plan.  It carries both axis
-  sizes and a 2-D cost ledger: *distributed* units (lanes of a
-  multi-block batch — divide by the data-shard count), *replicated*
-  units (singletons and post-fold reductions), fold collectives, and
-  *limb-local* bytes (work that divides by the per-device limb count)
-  vs *all-gather* bytes (key-switch digit movement across "model").
+  sizes, an optional real mesh and a 2-D cost ledger: *distributed*
+  units (lanes of a multi-block batch — divide by the data-shard count),
+  *replicated* units (singletons and post-fold reductions), fold
+  collectives, and *limb-local* bytes (work that divides by the
+  per-device limb count) vs *all-gather* bytes (key-switch digit
+  movement across "model").
   `modeled_seconds(costs)` prices the ledger with measured per-op
   costs; the limb factor k / ceil(k/M) divides every limb-local term
   and the gather bytes pay `costs["gather_byte"]` seconds each.
@@ -38,11 +39,17 @@ This module owns the runtime plumbing:
   logical count so fold/unstack/decrypt ignore the pads) and every
   `OpStats` charge is mirrored into the ledger.
 
-Contexts are logical: every one runs on the backend's own device
-(`make_shard_context` attaches no device mesh), with the same padding,
-ledger, re-sharding and recovery as a multi-device run would have.  The
-collectives over a real mesh are not here; a context carrying a mesh
-makes the backends raise.
+* A real mesh (launch/mesh.py, a torch DeviceMesh) is attached by
+  `make_shard_context("auto")` when a torch.distributed process group
+  has at least shards x limb_shards ranks; without one the context is
+  logical (padding + ledger on the backend's one device).  Every rank
+  runs the same program on replicated state — the same seed gives every
+  rank the same keys and ciphertexts — and charges the same ledger, so
+  a rank's `ledger_snapshot()` equals the logical context's but for its
+  `real_mesh` flag.  Only the collective sections split work by rank:
+  `sharded_fold` (a weighted sum of this rank's block lanes, then an
+  all-reduce over "data") and the key switch's digit all-gather over
+  "model" (core/bfv.py: kswitch_gathered).
 
 Parity contract: padding lanes (block or limb) are exact additive
 identities, `_count`/`_nblocks` keep returning *live* lane counts, and
@@ -55,6 +62,10 @@ from __future__ import annotations
 import contextlib
 import math
 
+import torch
+
+from ..launch.mesh import (axis_index, make_query_mesh, make_scan_mesh,
+                           mesh_axes, sum_axis, visible_ranks)
 from ..runtime.elastic import elastic_limb_plan, elastic_scan_plan
 
 # Modeled interconnect cost of moving one byte in a model-axis
@@ -119,7 +130,7 @@ class ShardContext:
     def limb_mesh(self):
         """The mesh iff it carries a real model axis to key-switch over."""
         if (self.mesh is not None and self.limb_shards > 1
-                and "model" in getattr(self.mesh, "axis_names", ())):
+                and "model" in mesh_axes(self.mesh)):
             return self.mesh
         return None
 
@@ -226,11 +237,17 @@ class ShardContext:
                                      limbs=self.limbs)
             return make_shard_context(self.shards,
                                       limb_shards=plan["limb_shards"],
-                                      limbs=self.limbs, ring_n=self.ring_n)
+                                      limbs=self.limbs, ring_n=self.ring_n,
+                                      device=self._device())
         plan = elastic_scan_plan(self.shards, excluded)
         return make_shard_context(plan["shards"],
                                   limb_shards=self.limb_shards,
-                                  limbs=self.limbs, ring_n=self.ring_n)
+                                  limbs=self.limbs, ring_n=self.ring_n,
+                                  device=self._device())
+
+    def _device(self):
+        """The device type of the attached mesh, None without one."""
+        return getattr(self.mesh, "device_type", None)
 
     def __repr__(self) -> str:  # pragma: no cover - debug aid
         return (f"ShardContext(shards={self.shards}, "
@@ -240,14 +257,29 @@ class ShardContext:
 
 
 def make_shard_context(shards: int, mesh="auto", limb_shards: int = 1,
-                       limbs: int | None = None,
-                       ring_n: int = 0) -> ShardContext:
-    """Build a context.  'auto' resolves to no mesh: the context runs
-    logical-only (padding + ledger, on the backend's one device), which
-    is what the reference builds on a one-device host.  A mesh passed
-    explicitly is kept, and the backends raise on it."""
-    if mesh == "auto":
-        mesh = None
+                       limbs: int | None = None, ring_n: int = 0,
+                       device=None) -> ShardContext:
+    """Build a context; 'auto' attaches a real mesh when an initialised
+    process group has enough ranks, else runs logical-only (padding +
+    ledger, single device) so shard plans stay testable on one card.
+    `device` is where the backend's tensors lie (launch/mesh.py builds
+    the mesh there).
+
+    The model axis gets real placement only when the limb count divides
+    evenly (k % M == 0) — otherwise limb sharding stays a ledger/padding
+    model (the data axis may still get a real 1-D mesh), keeping device
+    arithmetic byte-exact with no materialized pad limbs.
+    """
+    if isinstance(mesh, str) and mesh == "auto":
+        ranks = visible_ranks()
+        real_limb_axis = (limb_shards > 1 and limbs is not None
+                          and limbs % limb_shards == 0)
+        if real_limb_axis and shards * limb_shards <= ranks:
+            mesh = make_query_mesh(shards, limb_shards, device=device)
+        elif 1 < shards <= ranks:
+            mesh = make_scan_mesh(shards, device=device)
+        else:
+            mesh = None
     return ShardContext(shards, mesh, limb_shards=limb_shards,
                         limbs=limbs, ring_n=ring_n)
 
@@ -279,7 +311,7 @@ def lint_shard_context(ctx: ShardContext, limbs: int | None = None,
                     f"{ctx.limb_shards} != 0 — padded limbs must stay "
                     f"ledger-only, never device-placed"))
     if ctx.mesh is not None:
-        shape = dict(getattr(ctx.mesh, "shape", None) or {})
+        shape = mesh_axes(ctx.mesh)
         if "data" in shape and shape["data"] != ctx.shards:
             out.append(("mesh.data",
                         f"mesh data axis has {shape['data']} devices, "
@@ -305,3 +337,51 @@ def activate(bk, ctx: ShardContext | None):
         yield ctx
     finally:
         bk.shard_ctx = prev
+
+
+def batch_sharding(mesh) -> tuple:
+    """Placement of a (nblocks, 2, k, n) batch, one entry per dimension:
+    block lanes on "data", RNS limbs on "model" when the mesh carries
+    that axis."""
+    return ("data", None, "model" if "model" in mesh_axes(mesh) else None, None)
+
+
+def place_batch(data, mesh):
+    """A (nblocks, 2, k, n) batch placed on the query mesh.  Every rank
+    holds the whole batch (replicated state, see the module docstring);
+    the collective sections take this rank's lanes and limbs of it.  So
+    this checks that each dimension splits evenly over its axes of
+    `batch_sharding(mesh)` and that the batch lies where the mesh does,
+    and returns it unchanged."""
+    sizes = mesh_axes(mesh)
+    for dim, axis in zip(data.shape, batch_sharding(mesh)):
+        if axis is not None and dim % sizes[axis]:
+            raise ValueError(f"batch {tuple(data.shape)} does not split over "
+                             f"the {axis!r} axis of {sizes[axis]} (pad first)")
+    if data.device.type != mesh.device_type:
+        raise ValueError(f"batch on {data.device} but the mesh on "
+                         f"{mesh.device_type}")
+    return data
+
+
+def _fold_psum(data, weights, mesh):
+    """This rank's block lanes, weighted, summed; then summed over "data"
+    (limbs stay whole on every rank).  A rank outside the mesh sums every
+    lane itself."""
+    if mesh.get_coordinate() is None:
+        return (data * weights[:, None, None, None]).sum(0)
+    per = data.shape[0] // mesh_axes(mesh).get("data", 1)
+    lanes = slice(axis_index(mesh, "data") * per, (axis_index(mesh, "data") + 1) * per)
+    local = (data[lanes] * weights[lanes, None, None, None]).sum(0)
+    return sum_axis(local, mesh, "data")
+
+
+def sharded_fold(data, live: int, mesh):
+    """Fold a padded (nphys, 2, k, n) batch: shard-local weighted sum,
+    then an all-reduce over the "data" axis.  Pad lanes are excluded with
+    a 0/1 lane-weight vector.  Returns the raw (2, k, n) sum — the caller
+    reduces mod q (residues are < 2^30, so even ~190 int64 partial sums
+    cannot overflow before the reduction)."""
+    nphys = data.shape[0]
+    weights = (torch.arange(nphys, device=data.device) < live).to(data.dtype)
+    return _fold_psum(data, weights, mesh)

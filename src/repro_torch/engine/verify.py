@@ -871,7 +871,8 @@ def _main(argv=None) -> int:
                 from .sharded import make_shard_context
                 pl.shard_ctx = make_shard_context(
                     args.shards or 1, limb_shards=args.limb_shards or 1,
-                    limbs=bk.limbs, ring_n=bk.slots)
+                    limbs=bk.limbs, ring_n=bk.slots,
+                    device=getattr(bk, "device", None))
             t0 = time.perf_counter()
             rep = verify_plan(pl, plan)
             dt = time.perf_counter() - t0

@@ -267,9 +267,11 @@ def test_carry_across_port_to_jax():
 
 
 def test_mesh_paths_wait_for_the_sharded_slice(pair):
-    with pytest.raises(NotImplementedError):
+    """The mesh paths take a torch DeviceMesh (tests/test_torch_mesh.py
+    runs them on real ones, in gloo ranks); anything else raises."""
+    with pytest.raises(TypeError, match="DeviceMesh"):
         pair.tc.mul(pair.t1, pair.t2, pair.tk.rlk, mesh=object())
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         pair.tc.rotate_rows(pair.t1, 1, pair.tk.gks, mesh=object())
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         pair.tc.kswitch_gathered(pair.t1.data[1], pair.tk.rlk, object())

@@ -13,7 +13,10 @@ The limb kernels, both NTTs and rotate_reduce are held exactly
 (the kernel and the dense version sum in different orders) and 2e-2 in
 bfloat16 (outputs round at 2^-8 relative).  Sharded BFV queries on the
 card equal the unsharded run on the card, and checkpoints of CUDA
-tensors restore onto the card byte for byte.  The CPU tests of the same
+tensors restore onto the card byte for byte.  The encrypted-scan step
+(`launch/nshedb_step.py`) on the card equals a plain int64 contraction
+and its CPU run; a 2-rank gloo mesh with CUDA tensors folds and
+key-switches BFV micro ciphertexts as one device does.  The CPU tests of the same
 modules hold the plain versions against the JAX package.
 """
 import os
@@ -41,9 +44,12 @@ from repro_torch.kernels.flash_attn import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attn.ref import mha_ref  # noqa: E402
 from repro_torch.kernels.rotate_reduce import ops as rr_ops  # noqa: E402
 from repro_torch.kernels.rotate_reduce import ref as rr_ref  # noqa: E402
+from repro_torch.configs.nshedb import CONFIG, smoke  # noqa: E402
+from repro_torch.launch import nshedb_step  # noqa: E402
 from repro_torch.runtime.checkpoint import CheckpointManager  # noqa: E402
 from torch_cases import (bfv_shard_db, bfv_shard_oracle, bfv_shard_plans,  # noqa: E402
                          qkv_arrays, sharded_run, sum_slots_run)
+from torch_mesh_ranks import Ranks  # noqa: E402
 
 T = 65537
 FLASH_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
@@ -230,6 +236,61 @@ def test_cuda_checkpoint_round_trip(cuda_device, tmp_path):
     assert one["ct"].device.type == "cuda" and two["w"][0].device.type == "cuda"
     assert torch.equal(one["ct"] + 1, params["ct"]) and torch.equal(two["ct"], params["ct"])
     assert torch.equal(two["w"][0], params["w"][0])
+
+
+# -------------------------------------------------------------- scan step
+def _scan_inputs(consts, lead_list, seed):
+    q = consts["q"].cpu().numpy()[:, None]
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, q, tuple(lead) + (consts["tabs"].k, consts["tabs"].n))
+            for lead in lead_list]
+
+
+@pytest.mark.gpu
+def test_cuda_keyswitch_at_config_equals_contraction(cuda_device):
+    """One block's key switch at CONFIG (n = 32768, k = 32) through the
+    mul_mod / add_mod kernels against (poly * key mod q) summed over the
+    digits in plain int64 ops, exactly."""
+    consts = nshedb_step.make_constants(CONFIG, device=cuda_device)
+    poly, kb, ka = (torch.from_numpy(x).to(cuda_device)
+                    for x in _scan_inputs(consts, [(), (CONFIG.k,), (CONFIG.k,)], seed=0))
+    q = consts["q"][:, None]
+    kernels.reset_launch_counts()
+    got = nshedb_step.keyswitch(poly, kb, ka, consts["tabs"])
+    counts = kernels.launch_counts()
+    assert counts["mul_mod"] == 2 and counts["add_mod"] == 10
+    for g, key in zip(got, (kb, ka)):
+        assert torch.equal(g, (poly[:, None] * key % q).sum(0) % q)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["all_gather", "reduce_scatter"])
+def test_cuda_query_step_equals_cpu(cuda_device, mode):
+    """query_step at smoke() on 4 blocks on the card equals its CPU run."""
+    cfg = smoke()
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        consts = nshedb_step.make_constants(cfg, device=dev)
+        col, val, *keys = (torch.from_numpy(x).to(dev) for x in _scan_inputs(
+            consts, [(4, 2), (4, 2)] + [(cfg.k,)] * 4, seed=1))
+        out[dev.type] = nshedb_step.query_step(
+            col, val, *keys, consts["tabs"], consts["perm"], eq_levels=cfg.eq_levels,
+            rot_steps=cfg.rot_steps, ks_mode=mode, chunk=2)
+    assert torch.equal(out["cuda"].cpu(), out["cpu"])
+
+
+@pytest.mark.gpu
+def test_cuda_gloo_mesh_folds_and_key_switches(cuda_device, tmp_path):
+    """Two gloo ranks holding CUDA tensors: `kswitch_gathered` on a (1, 2)
+    mesh and `sharded_fold`, and a BFV micro fold under a real 2-rank
+    scan mesh, each equal to the one-device result."""
+    res = Ranks(2, ["kswitch", "bfv_fold"], tmp_path, device="cuda").results()
+    for got in res["kswitch"]:
+        assert got == {"batch": True, "single": True, "fold": True}
+    for got in res["bfv_fold"]:
+        assert got["mesh"] == {"device_type": "cuda", "axes": ("data",), "shape": (2,)}
+        np.testing.assert_array_equal(got["got"], got["base"])
+        np.testing.assert_array_equal(got["got"], np.sum(got["vecs"], axis=0) % got["t"])
 
 
 # -------------------------------------------------------------- flash_attn

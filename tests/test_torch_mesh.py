@@ -1,0 +1,224 @@
+"""The port's real-mesh paths against the JAX package's unsharded runs:
+the twins of the reference's multidevice cases (tests/test_sharded_exec.py
+and tests/test_limb_sharding.py, which skip on a one-device host), run
+here in `gloo` ranks on the CPU (tests/torch_mesh_ranks.py).
+
+Each mesh shape's ranks start once per module and run all its cases: two
+ranks (a ("data",) scan mesh of 2, a (1, 2) query mesh) and four (a
+(2, 2) query mesh).  Every rank runs the same program on replicated
+state; its decrypts and `OpStats` must equal the JAX package's unsharded
+run (tolerance 0), its `ExecReport` and ledger snapshot the port's
+logical context at the same cell (compared with `==`, the ledger's
+`real_mesh` flag aside).  The JAX runs and the logical ones run here, in
+the parent, where no process group exists.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.core.noise import NoiseProfile as JNoiseProfile
+from repro.core.params import make_params as jax_make_params
+from repro.engine import backend as jbackend
+from repro.engine import executor as jexecutor
+from repro.engine import plan as jplan
+from repro.engine import planner as jplanner
+from repro.engine import queries as jqueries
+from repro.engine import schema as jschema
+from repro.engine import sharded as jsharded
+from repro.engine import storage as jstorage
+from repro.engine import tpch as jtpch
+from repro_torch.core.noise import NoiseProfile
+from repro_torch.core.params import make_params
+from repro_torch.engine import backend as tbackend
+from repro_torch.engine import executor as texecutor
+from repro_torch.engine import plan as tplan
+from repro_torch.engine import planner as tplanner
+from repro_torch.engine import queries as tqueries
+from repro_torch.engine import schema as tschema
+from repro_torch.engine import sharded as tsharded
+from repro_torch.engine import storage as tstorage
+from repro_torch.engine import tpch as ttpch
+from repro_torch.launch import dryrun
+from repro_torch.launch import mesh as tmesh
+
+from torch_cases import bfv_shard_db, bfv_shard_oracle, bfv_shard_plans, sharded_run
+from torch_mesh_ranks import MICRO, Ranks
+
+JAX = dict(backend=jbackend, executor=jexecutor, plan=jplan, planner=jplanner,
+           queries=jqueries, schema=jschema, sharded=jsharded, storage=jstorage, tpch=jtpch)
+PORT = dict(backend=tbackend, executor=texecutor, plan=tplan, planner=tplanner,
+            queries=tqueries, schema=tschema, sharded=tsharded, storage=tstorage, tpch=ttpch)
+MESH_CELLS = [(1, 2), (2, 2)]
+PLANS = ["g1", "j1", "f1"]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The micro BFV runs are thousands of tiny tensor ops (see
+    tests/test_torch_sharded.py)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.fixture(scope="module")
+def started(tmp_path_factory):
+    """Two and four gloo ranks, started before the reference runs so that
+    both proceed together."""
+    started = {2: Ranks(2, ["fold", "bfv_fold", "mock_q1", "bfv_1x2", "auto", "kswitch"],
+                        tmp_path_factory.mktemp("mesh2")),
+               4: Ranks(4, ["bfv_2x2", "auto", "kswitch"], tmp_path_factory.mktemp("mesh4"))}
+    yield started
+    for group in started.values():
+        group.close()
+
+
+@pytest.fixture(scope="module")
+def ranks(started, bfv_reference):
+    """{world: {case: [result per rank]}}."""
+    return {world: r.results() for world, r in started.items()}
+
+
+@pytest.fixture(scope="module")
+def bfv_reference(started):
+    """The JAX package's unsharded BFV micro runs, the port's logical runs
+    at every mesh cell, and the plaintext oracles."""
+    jdb, data, pdata = bfv_shard_db(JAX, jbackend.BFVBackend(
+        jax_make_params(**MICRO), seed=11, kernel_backend="ref"))
+    tdb, _, _ = bfv_shard_db(PORT, tbackend.BFVBackend(make_params(**MICRO), seed=11,
+                                                       device="cpu"))
+    jplans, tplans = bfv_shard_plans(jplan), bfv_shard_plans(tplan)
+    return {"jax": {p: sharded_run(JAX, jdb, jplans[p], None) for p in PLANS},
+            "logical": {(p, c): sharded_run(PORT, tdb, tplans[p], c)
+                        for p in PLANS for c in MESH_CELLS},
+            "oracle": {p: bfv_shard_oracle(p, data, pdata) for p in PLANS}}
+
+
+def _ledger_as_logical(led):
+    assert led["real_mesh"] is True
+    return {**led, "real_mesh": False}
+
+
+def test_sharded_fold_matches_numpy(ranks):
+    for res in ranks[2]["fold"]:
+        data = res["data"]
+        np.testing.assert_array_equal(res["live3"], data[:3].sum(axis=0))
+        # pads excluded: live=4 differs
+        np.testing.assert_array_equal(res["live4"], data.sum(axis=0))
+        assert not np.array_equal(res["live4"], data[:3].sum(axis=0))
+
+
+def test_bfv_fold_on_real_mesh_parity(ranks):
+    for res in ranks[2]["bfv_fold"]:
+        assert res["mesh"] == {"device_type": "cpu", "axes": ("data",), "shape": (2,)}
+        assert res["nphys"] == 4 and res["nblocks"] == 3
+        np.testing.assert_array_equal(res["got"], res["base"])
+        np.testing.assert_array_equal(res["got"], np.sum(res["vecs"], axis=0) % res["t"])
+
+
+def test_mock_query_with_real_mesh(ranks):
+    """Q1 on the Mock backend under a real 2-rank mesh (only the ledger
+    layer sees it) equals the JAX package's unsharded run, its ledger the
+    port's logical context's."""
+    jdb = jtpch.load(jbackend.MockBackend(JNoiseProfile(n=64, t=65537, k=30)),
+                     jtpch.Scale.tiny())
+    jax_ = sharded_run(JAX, jdb, jqueries.QUERIES["Q1"][0](), None)
+    tdb = ttpch.load(tbackend.MockBackend(NoiseProfile(n=64, t=65537, k=30), device="cpu"),
+                     ttpch.Scale.tiny())
+    logical = sharded_run(PORT, tdb, tqueries.QUERIES["Q1"][0](), (2, 1))
+    for res in ranks[2]["mock_q1"]:
+        for run in (res["base"], res["shard"]):
+            assert run["got"] == jax_["got"] == tqueries.QUERIES["Q1"][2](tdb)
+            assert run["stats"] == jax_["stats"]
+        assert res["shard"]["report"] == logical["report"]
+        assert _ledger_as_logical(res["shard"]["ledger"]) == logical["ledger"]
+
+
+@pytest.mark.parametrize("cell", MESH_CELLS, ids=lambda c: f"{c[0]}x{c[1]}")
+@pytest.mark.parametrize("pname", PLANS)
+def test_bfv_micro_2d_parity(ranks, bfv_reference, pname, cell):
+    """Real ciphertexts through `kswitch_gathered` on a (1, 2) and a
+    (2, 2) mesh: every rank's decrypts and OpStats equal the JAX
+    package's unsharded run and the oracle, its report and ledger the
+    port's logical context's; digits were gathered."""
+    world, case = (2, "bfv_1x2") if cell == (1, 2) else (4, "bfv_2x2")
+    jax_ = bfv_reference["jax"][pname]
+    logical = bfv_reference["logical"][(pname, cell)]
+    for res in ranks[world][case]:
+        run = res[(pname, cell)]
+        assert run["got"] == jax_["got"] == bfv_reference["oracle"][pname]
+        assert run["stats"] == jax_["stats"] and run["stats"]["refresh"] == 0
+        assert run["report"] == logical["report"]
+        assert _ledger_as_logical(run["ledger"]) == logical["ledger"]
+        assert run["ledger"]["gathers"] > 0 and run["ledger"]["gather_bytes"] > 0
+
+
+def test_kswitch_gathered_equals_one_device(ranks):
+    """A 4-lane batch (lanes over "data" on the 2 x 2 mesh), a single
+    polynomial (replicated over "data") and `sharded_fold` of 3 live
+    lanes, each against the one-device arithmetic."""
+    for world in (2, 4):
+        for res in ranks[world]["kswitch"]:
+            assert res == {"batch": True, "single": True, "fold": True}
+
+
+def _desc(axes, shape):
+    return {"device_type": "cpu", "axes": axes, "shape": shape}
+
+
+def test_make_shard_context_auto(ranks):
+    """Without a process group "auto" stays logical; under one it
+    attaches a query mesh when shards x limb_shards ranks exist and
+    k % limb_shards == 0, else a scan mesh when 1 < shards fits."""
+    for shards, m, limbs in ((2, 1, 12), (1, 2, 12), (2, 2, 12), (1, 4, 30)):
+        ctx = tsharded.make_shard_context(shards, limb_shards=m, limbs=limbs, ring_n=128)
+        assert ctx.mesh is None and ctx.limb_mesh is None
+    data2, q12, q22 = _desc(("data",), (2,)), _desc(("data", "model"), (1, 2)), \
+        _desc(("data", "model"), (2, 2))
+    want = {2: {(2, 1, 12): data2, (1, 2, 12): q12, (2, 2, 12): data2, (1, 4, 30): None,
+                (1, 2, 30): q12, (4, 1, 12): None},
+            4: {(2, 1, 12): data2, (1, 2, 12): q12, (2, 2, 12): q22, (1, 4, 30): None,
+                (1, 2, 30): q12, (4, 1, 12): _desc(("data",), (4,))}}
+    for world in (2, 4):
+        for res in ranks[world]["auto"]:
+            assert res["contexts"] == want[world]
+            assert res["host"] == _desc(("data",), (world,))
+
+
+def test_mesh_factories_raise(ranks):
+    for fn in (lambda: tmesh.make_scan_mesh(1), lambda: tmesh.make_query_mesh(1, 1),
+               tmesh.make_host_mesh):
+        with pytest.raises(ValueError, match="process group"):
+            fn()
+    for res in ranks[2]["auto"]:
+        assert set(res["raised"]) == {"query_2x2", "production", "scan_3"}
+        assert all("ranks but only 2 are in the process group" in msg
+                   for msg in res["raised"].values())
+    for res in ranks[4]["auto"]:
+        assert res["raised"]["query_2x2"] is None and res["raised"]["scan_3"] is None
+        assert "needs 256 ranks but only 4" in res["raised"]["production"]
+
+
+def test_dryrun_record_scan_2m():
+    """Bytes per device of scan_2m on a 16 x 16 mesh, from shapes alone:
+    64 blocks over 16 data ranks, 32 limbs over 16 model ranks."""
+    import torch.distributed as dist
+    rec = dryrun.run_cell("nshedb", "scan_2m", "single")
+    assert not dist.is_initialized()
+    n, k = 32768, 32
+    ct = (64 // 16) * 2 * (k // 16) * n * 8
+    key = k * (k // 16) * n * 8
+    assert rec["argument_bytes"] == 2 * ct + 4 * key + 2 * k * 8 + n * 8
+    assert rec["output_bytes"] == 2 * (k // 16) * n * 8
+    assert rec["mesh_shape"] == [16, 16] and rec["status"] == "ok"
+    ref_fields = {"arch", "shape", "mesh", "mesh_shape", "status", "lower_s", "compile_s",
+                  "flops", "hlo_bytes", "argument_bytes", "output_bytes", "temp_bytes",
+                  "peak_bytes", "collective_bytes", "collective_total", "wall_s"}
+    assert ref_fields <= set(rec)
+    assert {f for f in ref_fields if rec[f] is None} == set(rec["null_reasons"])
+    multi = dryrun.run_cell("nshedb", "scan_2m", "multi")
+    assert multi["argument_bytes"] == 2 * (ct // 2) + 4 * key + 2 * k * 8 + n * 8
+    lm = dryrun.run_cell("gemma2-27b", "train_4k", "single")
+    assert lm["status"] == "skip" and "training slice" in lm["reason"]

@@ -65,8 +65,12 @@ def test_configs_are_the_reference_configs():
                 == dataclasses.asdict(jax_get_smoke_config(arch)))
         from repro.configs import shape_cells as jax_shape_cells
         assert shape_cells(arch) == jax_shape_cells(arch)
-    with pytest.raises(NotImplementedError):
-        input_specs(get_config(ARCHS[0]), "train_4k")
+    from repro.configs import input_specs as jax_input_specs
+    specs = input_specs(get_config(ARCHS[0]), "train_4k")
+    jspecs = jax_input_specs(jax_get_config(ARCHS[0]), "train_4k")
+    assert list(specs) == list(jspecs)
+    assert specs["tokens"].device.type == "meta"
+    assert tuple(specs["tokens"].shape) == tuple(jspecs["tokens"].shape)
 
 
 @pytest.mark.parametrize("arch", ARCHS)

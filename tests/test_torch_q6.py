@@ -204,9 +204,11 @@ def test_under_reporting_noise_model_matches():
 def test_later_slices_raise_not_implemented():
     """Sharded execution on logical contexts is ported (it runs and equals
     the unsharded result; 64 slots split tiny LINEITEM into 3 blocks, so
-    shards=2 pads a lane); what stays for later slices raises: a shard
-    context carrying a real device mesh on real ciphertexts (collectives
-    across cards), the training step and the dry-run's input specs."""
+    shards=2 pads a lane), and so are real meshes (tests/test_torch_mesh.py):
+    a context carrying anything but a torch DeviceMesh raises where the
+    batch is placed, and a fold whose lanes do not split over the data
+    axis runs on one device.  The dry-run's input specs are meta tensors.
+    What stays for a later slice raises: the training step."""
     from repro_torch.configs import get_config, registry
     from repro_torch.engine import sharded as tsharded
     from repro_torch.train import steps
@@ -220,18 +222,18 @@ def test_later_slices_raise_not_implemented():
     assert tqueries.run_via_plan(tplanner.Planner(tdb), tqueries.plan_q6(), limb_shards=2) == base
     bk = tbackend.BFVBackend(make_params(n=128, t=257, k=12), seed=3, device="cpu")
     blocks = [bk.encrypt(np.arange(4)) for _ in range(3)]
+    base = bk.decrypt(bk.fold_blocks(bk.ctx.stack_cts(blocks)))
     with tsharded.activate(bk, tsharded.ShardContext(2, mesh=object())):
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(TypeError, match="DeviceMesh"):
             bk.stack_blocks(blocks)
-        with pytest.raises(NotImplementedError):
-            bk.fold_blocks(bk.ctx.stack_cts(blocks))
+        np.testing.assert_array_equal(bk.decrypt(bk.fold_blocks(bk.ctx.stack_cts(blocks))), base)
     cfg = get_config("gemma2-27b")
     with pytest.raises(NotImplementedError):
         steps.make_train_step(cfg)
     with pytest.raises(NotImplementedError):
         steps.init_opt(cfg, {})
-    with pytest.raises(NotImplementedError):
-        registry.input_specs(cfg, "train")
+    specs = registry.input_specs(cfg, "train_4k")
+    assert specs["tokens"].device.type == "meta" and tuple(specs["tokens"].shape) == (256, 4096)
 
 
 def test_refresh_inplace_keeps_aliases_consistent():

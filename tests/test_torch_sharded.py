@@ -265,12 +265,13 @@ def test_bfv_padding_invisible_under_four_shards(bfv_dbs):
 
 
 def test_bfv_real_mesh_context_raises(bfv_dbs):
-    """A context carrying a device mesh needs collectives the port does not
-    have: the backend raises instead of running it on one device."""
+    """A context's mesh is a torch DeviceMesh (real ones run in
+    tests/test_torch_mesh.py): anything else makes the backend raise
+    instead of running on one device."""
     bk = bfv_dbs["port"][0].bk
     blocks = [bk.encrypt(np.arange(4)) for _ in range(3)]
     with tsharded.activate(bk, tsharded.ShardContext(2, mesh=object())):
-        with pytest.raises(NotImplementedError, match="mesh"):
+        with pytest.raises(TypeError, match="DeviceMesh"):
             bk.stack_blocks(blocks)
 
 
@@ -300,8 +301,9 @@ def test_limb_factor_matches_jax(m, limbs, want):
 
 
 def test_make_shard_context_is_logical():
-    """'auto' attaches no mesh in the port, whatever the host has: the
-    context runs on the backend's own device."""
+    """Without a torch.distributed process group 'auto' attaches no mesh:
+    the context runs on the backend's own device (under one it attaches a
+    DeviceMesh, tests/test_torch_mesh.py)."""
     for shards, m, limbs in ((1, 4, 30), (2, 1, 30), (4, 2, 12), (8, 8, 32)):
         ctx = tsharded.make_shard_context(shards, limb_shards=m, limbs=limbs, ring_n=64)
         assert ctx.mesh is None and ctx.limb_mesh is None
@@ -342,16 +344,22 @@ def test_ledger_charges_match_jax():
 
 
 def test_lint_shard_context_matches_jax():
-    fake_mesh = types.SimpleNamespace(axis_names=("data", "model"),
-                                      shape={"data": 4, "model": 4})
+    """The same geometry linted by both packages, each given a mesh of its
+    own kind (a JAX Mesh names its axes in `axis_names` with a {name:
+    size} `shape`; a torch DeviceMesh in `mesh_dim_names`, `shape` a
+    tuple)."""
+    fake_mesh = types.SimpleNamespace(mesh_dim_names=("data", "model"), shape=(4, 4))
+    jfake_mesh = types.SimpleNamespace(axis_names=("data", "model"),
+                                       shape={"data": 4, "model": 4})
     for name, mods in BOTH.items():
         S = mods["sharded"]
         ok = S.ShardContext(2, limb_shards=4, limbs=30, ring_n=64)
         assert S.lint_shard_context(ok, limbs=30, ring_n=64) == []
     for args, kw in (((2,), dict(limb_shards=4, limbs=30, ring_n=64)),
                      ((2, fake_mesh), dict(limb_shards=4, limbs=30, ring_n=64))):
+        jargs = tuple(jfake_mesh if a is fake_mesh else a for a in args)
         t = tsharded.lint_shard_context(tsharded.ShardContext(*args, **kw), limbs=12, ring_n=128)
-        j = jsharded.lint_shard_context(jsharded.ShardContext(*args, **kw), limbs=12, ring_n=128)
+        j = jsharded.lint_shard_context(jsharded.ShardContext(*jargs, **kw), limbs=12, ring_n=128)
         assert t == j and t
     codes = [c for c, _ in tsharded.lint_shard_context(
         tsharded.ShardContext(2, fake_mesh, limb_shards=4, limbs=30, ring_n=64), 30, 64)]

@@ -185,19 +185,22 @@ def test_crosscheck_static_headroom_is_sound(dbs):
 
 
 def test_verify_under_a_shard_context_is_not_ported_yet(dbs):
-    """Shard contexts are logical in the port: verifying under one runs the
-    mesh lint and the ledger reconciliation, as in the JAX package
-    (tests/test_torch_sharded.py holds every query).  A context carrying a
-    device mesh — which the port cannot execute yet — is linted like the
-    reference's: a mesh whose axes disagree with the context is an error."""
+    """Verifying under a logical shard context runs the mesh lint and the
+    ledger reconciliation, as in the JAX package (tests/test_torch_sharded.py
+    holds every query).  A context carrying a device mesh is linted like
+    the reference's: a mesh whose axes disagree with the context is an
+    error.  Each package gets a mesh of its own kind (a torch DeviceMesh
+    names its axes in `mesh_dim_names`, its `shape` a tuple)."""
     import types
 
     from repro.engine import sharded as jsharded
     from repro_torch.engine import sharded as tsharded
 
-    mesh = types.SimpleNamespace(axis_names=("data",), shape={"data": 4})
+    meshes = {"port": types.SimpleNamespace(mesh_dim_names=("data",), shape=(4,)),
+              "jax": types.SimpleNamespace(axis_names=("data",), shape={"data": 4})}
     out = []
-    for mods, S, db in ((PORT, tsharded, dbs[0]), (JAX, jsharded, dbs[1])):
+    for mods, S, db, mesh in ((PORT, tsharded, dbs[0], meshes["port"]),
+                              (JAX, jsharded, dbs[1], meshes["jax"])):
         pl = _planner(mods, db, True)
         kw = dict(limbs=db.bk.limbs, ring_n=db.bk.slots)
         pl.shard_ctx = S.ShardContext(2, None, limb_shards=4, **kw)
