@@ -36,13 +36,19 @@ gemma2-27b's full width and depth:
   scan      the paper's encrypted-scan step (`launch/nshedb_step.query_step`)
             at `configs/nshedb.CONFIG` (n = 32768, k = 32, t = 65537) on
             64 blocks (2.1 M rows) for the scan_2m, scan_33m_pagg and
-            scan_33m_rs cells, every product and sum on the mul_mod /
-            add_mod kernels; one block's key switch, square, multiply
-            and rotation held exactly against plain versions;
+            scan_33m_rs cells (the last is scan_2m's arithmetic under
+            another ks_mode name, and must equal it), every product and
+            sum on the mul_mod / add_mod kernels; one block's key switch,
+            square, multiply and rotation held exactly against plain
+            versions;
   mesh      four ranks sharing the card over gloo (CUDA tensors) on a
             2 x 2 ("data", "model") mesh, each running Q1 at the paper's
-            parameters with the key switches gathered over "model" and
-            the fold summed over "data"; then one rank under NCCL.
+            parameters with the key switches gathered over "model" (Q1's
+            one block is one lane, so in Q1 the "data" axis only
+            replicates); then in the same ranks, at the same parameters,
+            a 4-lane key switch split 2 lanes a "data" rank and a 4-lane
+            fold summed over "data", both against one device; then one
+            rank under NCCL.
 
     python3 chip_smoke.py            # needs one NVIDIA GPU and nvcc
 
@@ -209,6 +215,51 @@ def _ntt_every_n(paper, rng, dev) -> int:
     return checks
 
 
+def _limb_slice_checks(paper, rng, dev) -> int:
+    """`LimbLocalOps` over each half of the paper's Q base (the limb
+    slices a 2-way "model" axis gives `kswitch_gathered`) at the mesh
+    path's shapes: ntt of the gathered digits (lanes, k, k/2, n), mul by
+    the key's output-limb slice (k, k/2, n) and intt of the digit sums
+    (lanes, k/2, n), for 1 lane (Q1's one block) and 2 (a 4-lane batch
+    over a 2-way "data" axis).  Each kernel call is held against the same
+    call under `force_ref` and against the whole base's plain version
+    on a (..., k, n) tensor holding the slice in limbs [lo, hi) — a
+    check of the slice's tables that does not read them."""
+    from repro_torch.core.limbops import LimbLocalOps, LimbOps, force_ref
+
+    k, n = paper.k, paper.n
+    whole = LimbOps(paper.Q, device=dev)
+
+    def in_base(x, lo, hi):
+        full = torch.zeros(*x.shape[:-2], k, n, dtype=x.dtype, device=x.device)
+        full[..., lo:hi, :] = x
+        return full
+
+    checks = 0
+    for lo, hi in ((0, k // 2), (k // 2, k)):
+        ops = LimbLocalOps(paper.Q, lo, hi, device=dev)
+        key = _rand_limbs(rng, ops.primes, (k,), n, dev)
+        for lanes in (1, 2):
+            digits = _rand_limbs(rng, ops.primes, (lanes, k), n, dev)
+            sums = _rand_limbs(rng, ops.primes, (lanes,), n, dev)
+            what = f"limbs [{lo}, {hi}) x {lanes} lanes"
+            for name, fn, whole_fn in (
+                    ("ntt_fwd", lambda: ops.ntt(digits),
+                     lambda: whole.ntt(in_base(digits, lo, hi))),
+                    ("mul_mod", lambda: ops.mul(digits, key),
+                     lambda: whole.mul(in_base(digits, lo, hi), in_base(key, lo, hi))),
+                    ("ntt_inv", lambda: ops.intt(sums),
+                     lambda: whole.intt(in_base(sums, lo, hi)))):
+                got = fn()
+                with force_ref():
+                    exp, exp_whole = fn(), whole_fn()[..., lo:hi, :]
+                _check_equal(name, got, exp, what)
+                _check_equal(name, got, exp_whole, what + " (whole base)")
+                checks += 2
+            del digits, sums
+    return checks
+
+
 E8 = 8               # bytes per element at the kernel boundary (int64)
 BFLY_OPS = 10        # integer operations per radix-2 butterfly
 
@@ -288,6 +339,7 @@ def phase_kernels(paper) -> dict:
                 checks += 3
 
     checks += _ntt_every_n(paper, rng, dev)
+    checks += _limb_slice_checks(paper, rng, dev)
 
     # timings at the shapes Q6 gives the kernels (5 lanes, k = 30, n = 32768)
     k, n = paper.k, paper.n
@@ -1345,9 +1397,13 @@ def phase_serve(profile: bool = False) -> dict:
 
 # -------------------------------------------------------------------- scan
 # the paper's scan cells (configs/nshedb.SHAPES) at CONFIG's full width
-# (n = 32768, k = 32, t = 65537) on scan_2m's 64 blocks: the scan_33m cells
-# take 1024 blocks, which one card cannot hold (2 x 16 GiB of inputs and
-# 16 x 2 GiB of working set a pass), so they run at the same 64 blocks
+# (n = 32768, k = 32, t = 65537) on scan_2m's 64 blocks.  The scan_33m
+# cells take 1024 blocks; they run at the same 64 to keep this smoke run
+# short (1024 blocks are 16 times the device work and a 32 GiB numpy draw
+# on the host a cell).  Whether one card holds 1024 blocks was not tried.
+# scan_33m_rs differs from scan_2m only in ks_mode, which names a mesh
+# placement: on one device it is the same arithmetic, so its run repeats
+# scan_2m's and its output must equal scan_2m's bit for bit.
 SCAN_CELLS = ("scan_2m", "scan_33m_pagg", "scan_33m_rs")
 SCAN_BLOCKS = 64
 
@@ -1479,8 +1535,10 @@ def phase_scan() -> tuple[dict, dict]:
         runs[cell] = {
             "nblocks": SCAN_BLOCKS, "rows": SCAN_BLOCKS * cfg.n,
             "cut": None if spec["nblocks"] == SCAN_BLOCKS else
-            f"{spec['nblocks']} -> {SCAN_BLOCKS} blocks: one card (the cell's inputs "
-            f"alone are {spec['nblocks'] * 2 * 2 * cfg.k * cfg.n * E8 / 2**30:.0f} GiB)",
+            f"{spec['nblocks']} -> {SCAN_BLOCKS} blocks to keep the smoke run short "
+            f"(the cell's inputs are {spec['nblocks'] * 2 * 2 * cfg.k * cfg.n * E8 / 2**30:.0f} "
+            f"GiB drawn on the host); whether one card holds them was not tried",
+            "same_arithmetic_as": "scan_2m" if spec.get("ks_mode") else None,
             "eq_levels": cfg.eq_levels, "rot_steps": rot, "ks_mode": spec.get("ks_mode") or S.KS_MODE,
             "key_switches_per_block": cfg.eq_levels + 1 + rot, "chunk": chunk,
             "query_s": secs, "s_per_block": secs / SCAN_BLOCKS,
@@ -1514,7 +1572,9 @@ MESH_TIMEOUT_S = 900         # rendezvous, each collective, and the joins
 def _mesh_q1(expect_stats) -> dict:
     """One rank's TPC-H Q1 at `paper_params()` on LINEITEM 32768 rows on
     a real ("data", "model") mesh (CUDA tensors, gloo): the same keys and
-    table in every rank (seeded), key switches gathered over "model"."""
+    table in every rank (seeded), key switches gathered over "model".
+    The table is one block, one lane, so no key switch splits lanes and
+    no fold crosses "data" in Q1; `_mesh_data_axis` then drives both."""
     from repro_torch.core.params import paper_params
     from repro_torch.engine import queries
     from repro_torch.engine.planner import Planner
@@ -1525,6 +1585,7 @@ def _mesh_q1(expect_stats) -> dict:
     run = _q1_via_plan(bk, pl)
     ledger = pl.shard_ctx.ledger_snapshot()
     exp = queries.oracle_q1(db)
+    data_axis = _mesh_data_axis(bk, mesh)
     bad = []
     if mesh is None or pl.shard_ctx.limb_mesh is None or mesh.device_type != "cuda":
         bad.append(f"no real CUDA query mesh: {mesh}")
@@ -1534,6 +1595,7 @@ def _mesh_q1(expect_stats) -> dict:
         bad.append(f"OpStats {run['op_stats']} != unsharded {expect_stats}")
     if run["op_stats"]["refresh"] != 0 or not ledger["gather_bytes"] > 0:
         bad.append(f"refresh {run['op_stats']['refresh']}, gather bytes {ledger['gather_bytes']}")
+    bad += data_axis.pop("failures")
     return {"mesh": {"device_type": mesh.device_type, "shape": list(mesh.shape),
                      "axes": list(mesh.mesh_dim_names)} if mesh is not None else None,
             "keygen_s": round(secs["keygen"], 3), "load_encrypt_s": round(secs["load_encrypt"], 3),
@@ -1541,7 +1603,32 @@ def _mesh_q1(expect_stats) -> dict:
             "equal_to_oracle": run["got"] == exp, "op_stats": run["op_stats"],
             "ledger": {k: ledger[k] for k in ("gathers", "gather_bytes", "folds", "real_mesh")},
             "kernel_launches": run["launches"], "peak_device_bytes": run["peak_device_bytes"],
-            "failures": bad}
+            "data_axis": data_axis, "failures": bad}
+
+
+def _mesh_data_axis(bk, mesh) -> dict:
+    """What Q1's one block leaves idle on the "data" axis, at the
+    paper's parameters on the same mesh: `kswitch_gathered` of a 4-lane
+    batch (2 lanes a "data" rank, 15 limbs a "model" rank) against the
+    one-device key switch, and `sharded_fold` of 4 lanes, 3 of them
+    live, against their plain sum.  The draws are seeded, so every rank
+    holds the same batch."""
+    from repro_torch.engine.sharded import sharded_fold
+
+    ctx, rlk, paper = bk.ctx, bk.keys.rlk, bk.ctx.params
+    rng = np.random.default_rng(SEED + 3)
+    poly = _rand_limbs(rng, paper.Q.primes, (4,), paper.n, bk.device)
+    data = _rand_limbs(rng, paper.Q.primes, (4, 2), paper.n, bk.device)
+    t0 = clock()
+    got = ctx.kswitch_gathered(poly, rlk, mesh)
+    ks_s = clock() - t0
+    ks_equal = all(torch.equal(g, e) for g, e in zip(got, ctx._kswitch_inner(poly, rlk.b, rlk.a)))
+    del got
+    fold_equal = torch.equal(sharded_fold(data, 3, mesh), data[:3].sum(0))
+    bad = [] if ks_equal and fold_equal else [
+        f"data axis: kswitch_gathered equal {ks_equal}, sharded_fold equal {fold_equal}"]
+    return {"kswitch_gathered_4_lanes_equal": ks_equal, "kswitch_gathered_s": ks_s,
+            "sharded_fold_4_lanes_equal": fold_equal, "failures": bad}
 
 
 def _mesh_nccl() -> dict:
@@ -1629,8 +1716,10 @@ def _run_ranks(world: int, backend: str, expect_stats=None) -> list:
 def phase_mesh(expect_stats) -> dict:
     """Four ranks sharing the card over gloo on a 2 x 2 ("data", "model")
     mesh, each running Q1 on real ciphertexts (every rank equal to the
-    oracle, OpStats equal to the unsharded run's), then one rank under
-    NCCL.  Returns the launch counts of the four ranks' queries, summed."""
+    oracle, OpStats equal to the unsharded run's) and then the "data"
+    axis' key switch and fold against one device; then one rank under
+    NCCL.  Returns the launch counts of the four ranks' queries, summed
+    (the checks after Q1 are not counted)."""
     shutil.rmtree(MESH_DIR, ignore_errors=True)
     os.makedirs(MESH_DIR)
     t0 = time.perf_counter()

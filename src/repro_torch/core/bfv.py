@@ -45,7 +45,7 @@ import math
 import numpy as np
 import torch
 
-from ..launch.mesh import axis_index, gather_axis, mesh_axes
+from .collectives import axis_index, gather_axis, mesh_axes
 from .limbops import LimbLocalOps, LimbOps
 from .mathutil import centered, crt_reconstruct
 from .noise import NoiseModel

@@ -64,8 +64,8 @@ import math
 
 import torch
 
-from ..launch.mesh import (axis_index, make_query_mesh, make_scan_mesh,
-                           mesh_axes, sum_axis, visible_ranks)
+from ..core.collectives import axis_index, mesh_axes, sum_axis, visible_ranks
+from ..launch.mesh import make_query_mesh, make_scan_mesh
 from ..runtime.elastic import elastic_limb_plan, elastic_scan_plan
 
 # Modeled interconnect cost of moving one byte in a model-axis

@@ -1,5 +1,5 @@
-"""Mesh construction and the collectives over its axes, on
-torch.distributed.
+"""Mesh construction on torch.distributed (the collectives over a
+mesh's axes are in core/collectives.py).
 
 Defined as functions (no module-level state) so importing this module
 touches no process group.
@@ -12,10 +12,6 @@ no matter which factory built the mesh.  A mesh lives on "cuda" when the
 group's backend is NCCL or the caller's tensors lie on the card
 (`device`), else on "cpu".  Building a mesh creates its axes' process
 groups, so every rank of the group calls the factory together.
-
-The port runs one process per rank on replicated state (every rank holds
-every ciphertext and key): only the collective sections split work by
-rank, each through `gather_axis` / `sum_axis`.
 """
 from __future__ import annotations
 
@@ -24,10 +20,7 @@ import math
 import torch
 import torch.distributed as dist
 
-
-def visible_ranks() -> int:
-    """Ranks of the initialised process group (0 without one)."""
-    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 0
+from ..core.collectives import visible_ranks
 
 
 def _device_mesh(shape: tuple[int, ...], axes: tuple[str, ...], device=None):
@@ -80,33 +73,3 @@ def make_query_mesh(data: int, model: int, device=None):
     (engine/sharded.py, core/bfv.py: kswitch_gathered)."""
     return _device_mesh((data, model), ("data", "model"), device)
 
-
-def mesh_axes(mesh) -> dict[str, int]:
-    """{axis name: size} of a DeviceMesh."""
-    names = getattr(mesh, "mesh_dim_names", None)
-    if names is None:
-        raise TypeError(f"expected a torch DeviceMesh with named axes, got {mesh!r}")
-    return dict(zip(names, mesh.shape))
-
-
-def axis_index(mesh, axis: str) -> int:
-    """This rank's index along `axis` (0 when the mesh lacks the axis)."""
-    return mesh.get_local_rank(axis) if axis in mesh_axes(mesh) else 0
-
-
-def gather_axis(t: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
-    """All-gather `t` over the ranks of `axis`, concatenated along `dim`
-    in rank order (the identity on an axis of one rank or none)."""
-    size = mesh_axes(mesh).get(axis, 1)
-    if size == 1:
-        return t
-    parts = [torch.empty_like(t) for _ in range(size)]
-    dist.all_gather(parts, t.contiguous(), group=mesh.get_group(axis))
-    return torch.cat(parts, dim=dim)
-
-
-def sum_axis(t: torch.Tensor, mesh, axis: str) -> torch.Tensor:
-    """Sum `t` in place over the ranks of `axis` and return it."""
-    if mesh_axes(mesh).get(axis, 1) > 1:
-        dist.all_reduce(t, group=mesh.get_group(axis))
-    return t

@@ -65,16 +65,6 @@ def make_constants(cfg: NshedbConfig, device="cuda") -> dict:
             "perm": torch.from_numpy(perm).to(tabs.device), "tabs": tabs}
 
 
-def _check_mode(mode):
-    """The key-switch formulation, `KS_MODE` when None.  On one device
-    both give the same numbers: "reduce_scatter" only changes how a mesh
-    would place the digit products."""
-    mode = mode or KS_MODE
-    if mode not in KS_MODES:
-        raise ValueError(f"ks_mode {mode!r} is not one of {KS_MODES}")
-    return mode
-
-
 def _check_pow2(what: str, count: int) -> None:
     if count < 1 or count & (count - 1):
         raise ValueError(f"{what} must be a power of two, got {count}")
@@ -99,13 +89,12 @@ def tile_keys(keys, blocks: int) -> list:
             for kk in keys]
 
 
-def keyswitch(poly, ksk_b, ksk_a, tabs: LimbTables, mode: str = None):
+def keyswitch(poly, ksk_b, ksk_a, tabs: LimbTables):
     """RNS key-switch of `poly` (..., k, n): digit-major gadget product.
 
     Digit i (the residue of limb i, not reduced mod the output limb's
     prime) times key limb j mod q_j, summed over i.  The key is
     (k, k, n), or tiled to (k, *lead, k, n) by `tile_keys`."""
-    _check_mode(mode)
     k = poly.shape[-2]
     lead = poly.shape[:-2]
     digits = poly.movedim(-2, 0).unsqueeze(-2).expand(k, *lead, k, poly.shape[-1])
@@ -117,7 +106,7 @@ def keyswitch(poly, ksk_b, ksk_a, tabs: LimbTables, mode: str = None):
     return out[0], out[1]
 
 
-def ct_square(ct, rlk_b, rlk_a, tabs: LimbTables, mode=None):
+def ct_square(ct, rlk_b, rlk_a, tabs: LimbTables):
     """Evaluation-domain ciphertext squaring + relinearization.
     ct: (2, ..., k, n)."""
     c0, c1 = ct[0], ct[1]
@@ -125,36 +114,36 @@ def ct_square(ct, rlk_b, rlk_a, tabs: LimbTables, mode=None):
     d1 = mul_mod(c0, c1, tabs)
     d1 = add_mod(d1, d1, tabs)
     d2 = mul_mod(c1, c1, tabs)
-    ks0, ks1 = keyswitch(d2, rlk_b, rlk_a, tabs, mode)
+    ks0, ks1 = keyswitch(d2, rlk_b, rlk_a, tabs)
     return torch.stack([add_mod(d0, ks0, tabs), add_mod(d1, ks1, tabs)])
 
 
-def ct_mul(ct_a, ct_b, rlk_b, rlk_a, tabs: LimbTables, mode=None):
+def ct_mul(ct_a, ct_b, rlk_b, rlk_a, tabs: LimbTables):
     a0, a1 = ct_a[0], ct_a[1]
     b0, b1 = ct_b[0], ct_b[1]
     d0 = mul_mod(a0, b0, tabs)
     d1 = add_mod(mul_mod(a0, b1, tabs), mul_mod(a1, b0, tabs), tabs)
     d2 = mul_mod(a1, b1, tabs)
-    ks0, ks1 = keyswitch(d2, rlk_b, rlk_a, tabs, mode)
+    ks0, ks1 = keyswitch(d2, rlk_b, rlk_a, tabs)
     return torch.stack([add_mod(d0, ks0, tabs), add_mod(d1, ks1, tabs)])
 
 
-def rotate(ct, perm, gk_b, gk_a, tabs: LimbTables, mode=None):
+def rotate(ct, perm, gk_b, gk_a, tabs: LimbTables):
     """Galois rotation: coefficient permutation + key switch."""
     rot = ct[..., perm]
-    ks0, ks1 = keyswitch(rot[1], gk_b, gk_a, tabs, mode)
+    ks0, ks1 = keyswitch(rot[1], gk_b, gk_a, tabs)
     return torch.stack([add_mod(rot[0], ks0, tabs), ks1])
 
 
-def _scan_blocks(col, val, keys, tabs, perm, eq_levels, rot_steps, mode):
+def _scan_blocks(col, val, keys, tabs, perm, eq_levels, rot_steps):
     """One chunk: col/val (2, B, k, n); keys tiled for B blocks."""
     rlk_b, rlk_a, gk_b, gk_a = keys
     mask = col
     for _ in range(eq_levels):
-        mask = ct_square(mask, rlk_b, rlk_a, tabs, mode)
-    out = ct_mul(mask, val, rlk_b, rlk_a, tabs, mode)
+        mask = ct_square(mask, rlk_b, rlk_a, tabs)
+    out = ct_mul(mask, val, rlk_b, rlk_a, tabs)
     for _ in range(rot_steps):
-        out = add_mod(out, rotate(out, perm, gk_b, gk_a, tabs, mode), tabs)
+        out = add_mod(out, rotate(out, perm, gk_b, gk_a, tabs), tabs)
     return out
 
 
@@ -178,8 +167,14 @@ def query_step(cts_col, cts_val, rlk_b, rlk_a, gk_b, gk_a, tabs: LimbTables, per
     """cts_col/cts_val: (nblocks, 2, k, n) int64 residues — EQ-mask the
     column, multiply the values, rotate-reduce, then sum across blocks.
     Returns the (2, k, n) aggregate.  `chunk` blocks (a power of two;
-    `default_chunk` when None) run through each pass."""
-    mode = _check_mode(ks_mode)
+    `default_chunk` when None) run through each pass.
+
+    `ks_mode` (`KS_MODE` when None) is one of `KS_MODES`.  It is checked
+    and nothing else: in the JAX package "reduce_scatter" only adds a
+    sharding constraint on the digit products, and this step runs on one
+    device, so both modes compute the same numbers."""
+    if (ks_mode or KS_MODE) not in KS_MODES:
+        raise ValueError(f"ks_mode {ks_mode!r} is not one of {KS_MODES}")
     nb, k = cts_col.shape[0], cts_col.shape[-2]
     _check_pow2("nblocks", nb)
     chunk = chunk or default_chunk(cts_col, k)
@@ -192,7 +187,7 @@ def query_step(cts_col, cts_val, rlk_b, rlk_a, gk_b, gk_a, tabs: LimbTables, per
         col = cts_col[i:i + chunk].transpose(0, 1).contiguous()
         val = cts_val[i:i + chunk].transpose(0, 1).contiguous()
         outs.append(_scan_blocks(col, val, keys, tabs, perm, eq_levels,
-                                 rot_steps, mode).transpose(0, 1))
+                                 rot_steps).transpose(0, 1))
     del keys
     outs = torch.cat(outs)
     # binary-tree modular block aggregation: log2(nb) halving rounds

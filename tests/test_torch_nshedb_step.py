@@ -158,8 +158,10 @@ def test_non_power_of_two_sizes_raise(consts, inputs):
     with pytest.raises(ValueError, match="power of two"):
         T.query_step(cts, cts, *map(torch.from_numpy, inputs["keys"]), tc["tabs"],
                      tc["perm"], eq_levels=1, rot_steps=1)
+    cts = torch.from_numpy(inputs["col"][:4])
     with pytest.raises(ValueError, match="ks_mode"):
-        T.keyswitch(three[0], three, three, tc["tabs"], mode="psum")
+        T.query_step(cts, cts, *map(torch.from_numpy, inputs["keys"]), tc["tabs"],
+                     tc["perm"], eq_levels=1, rot_steps=1, ks_mode="psum")
 
 
 @pytest.mark.parametrize("shape", sorted(tcfg.SHAPES))
