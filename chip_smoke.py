@@ -3,8 +3,8 @@
 the sources in this checkout, holds each against its plain PyTorch
 version on the card, and drives the port's paths: the encrypted query
 engine at the paper's parameters (n = 32768, t = 65537, 30 RNS limbs,
-LINEITEM at 32768 rows) and the LM substrate's serving path at
-gemma2-27b's full width and depth:
+LINEITEM at 32768 rows), the LM substrate's serving path at gemma2-27b's
+full width and depth, and its training path at starcoder2-3b's:
 
   kernels   every kernel against its plain version (the limb kernels and
             rotate_reduce exactly, both NTTs at every n = 2 .. 32768,
@@ -48,13 +48,23 @@ gemma2-27b's full width and depth:
             replicates); then in the same ranks, at the same parameters,
             a 4-lane key switch split 2 lanes a "data" rank and a 4-lane
             fold summed over "data", both against one device; then one
-            rank under NCCL.
+            rank under NCCL;
+  train     (a) the attention gradient (flash_attn forward, torch-op
+            backward) against autograd through the plain version on the
+            card, float32, four cases up to S = 4500; (b) starcoder2-3b at
+            full width and depth in float32 through
+            `repro_torch.launch.train.main` for 6 steps of 2 x 1024
+            tokens (one flash_attn launch per layer a step, the backward
+            in torch ops); (c) at full width with 2 layers: one step on the
+            card against the same step on the CPU, a --compress-grads
+            step, and save at step 2 / resume to step 4 against an
+            uninterrupted run.
 
     python3 chip_smoke.py            # needs one NVIDIA GPU and nvcc
 
 Output: one JSON object per line (`env`, `kernel_checks`, `micro`,
 `main`, `workload`, `shard`, `shard_chaos`, `serve_consistency`, `serve`,
-`scan`, `mesh`, `kernels`),
+`scan`, `mesh`, `train`, `kernels`),
 the card's name and power limit as nvidia-smi prints them, and as the
 last line `{"ok": true, "device": {...}}`.  Any failed phase raises, so
 the exit code is non-zero and no result line is printed.
@@ -63,7 +73,7 @@ the exit code is non-zero and no result line is printed.
 first check of a changed kernel or `--phases serve` for the LM path
 alone; the end check then asks launches only of the kernels of the paths
 that ran.  `--profile` adds device time by kernel (`profile`,
-`serve_profile` lines).
+`serve_profile`, `train_profile` lines).
 """
 from __future__ import annotations
 
@@ -104,7 +114,7 @@ BFV_KERNELS = ("ntt_fwd", "ntt_inv", "mul_mod", "add_mod", "sub_mod")
 PATH_KERNELS = {"main": BFV_KERNELS, "workload_q1_bfv": BFV_KERNELS,
                 "workload_mock": ("rotate_reduce",), "shard_q1_bfv": BFV_KERNELS,
                 "shard_chaos_mock": ("rotate_reduce",), "serve": ("flash_attn",),
-                "scan": ("mul_mod", "add_mod"), "mesh": BFV_KERNELS}
+                "scan": ("mul_mod", "add_mod"), "mesh": BFV_KERNELS, "train": ("flash_attn",)}
 # flash_attn against its plain version: the kernel and the dense version
 # sum in different orders (float32), and bfloat16 outputs round at 2^-8
 FLASH_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
@@ -1742,6 +1752,320 @@ def phase_mesh(expect_stats) -> dict:
     return launches
 
 
+# ------------------------------------------------------------------- train
+# starcoder2-3b (arXiv:2402.19173) at full width and depth in float32, as
+# the reference launcher trains; the dry-run's train_4k cell (batch 256 x
+# 4096 tokens) is cut to 2 x 1024 by one card's 80 GB (parameters,
+# gradients and both AdamW moments take 48.5 GB)
+TRAIN_ARCH = "starcoder2-3b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 1024, 6
+TRAIN_ARGV = ["--arch", TRAIN_ARCH, "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+              "--steps", str(TRAIN_STEPS), "--log-every", "1"]
+# the two-layer checks at full width: batch 1 x 256 tokens
+CHECK_LAYERS, CHECK_BATCH, CHECK_SEQ = 2, 1, 256
+CHECK_ARGV = ["--arch", TRAIN_ARCH, "--batch", str(CHECK_BATCH), "--seq", str(CHECK_SEQ),
+              "--log-every", "100"]
+TRAIN_CKPT_DIR = os.path.join(HERE, ".scratch", "train_checkpoint")
+# the attention gradient with the kernel forward against autograd through
+# the plain version, float32: the two sum in other orders
+ATTN_GRAD_TOL = 1e-4           # of the largest |gradient|
+# card step against CPU step: matmuls and attention sum in other orders
+TRAIN_STEP_RTOL = 1e-4
+PEAK_F32_FLOPS = 67e12         # float32 outside the tensor cores (TF32 off)
+# (B, H, Hkv, S, D, kwargs): starcoder2-3b's training shape; a gemma2-like
+# layer (softcap 50, window 4096, GQA 2:1) past the window and past one
+# 2048-query chunk, S not a multiple of it; two whole chunks
+ATTN_GRAD_CASES = [
+    (2, 24, 2, 1024, 128, dict(causal=True)),
+    (1, 8, 4, 4500, 128, dict(causal=True, window=4096, softcap=50.0)),
+    (1, 4, 1, 3000, 128, dict(causal=True)),
+    (1, 4, 2, 4096, 128, dict(causal=True)),
+]
+
+
+def _attn_grad_checks(dev) -> dict:
+    """`mha` under autograd (the kernel forward, `grad.mha_backward`)
+    against autograd through `mha_ref`, on the card in float32, on
+    ATTN_GRAD_CASES: the output within FLASH_TOL, dq, dk, dv within
+    ATTN_GRAD_TOL of the largest |gradient|."""
+    from repro_torch.kernels.flash_attn.ops import mha
+    from repro_torch.kernels.flash_attn.ref import mha_ref
+
+    rng = np.random.default_rng(SEED + 7)
+    out = []
+    for B, H, Hkv, S, D, kw in ATTN_GRAD_CASES:
+        q, k, v = _attn_inputs(rng, B, H, Hkv, S, S, D, torch.float32, dev, strided=True,
+                               q_scale=SOFTCAP_Q_SCALE if "softcap" in kw else 1.0)
+        w = torch.from_numpy(rng.standard_normal((B, H, S, D), dtype=np.float32)).to(dev)
+        res = []
+        for fn in (mha, mha_ref):
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            o = fn(*leaves, **kw)
+            res.append((o.detach(), torch.autograd.grad((o * w).sum(), leaves)))
+            del o, leaves
+        (o_k, g_k), (o_r, g_r) = res
+        what = f"{(B, H, Hkv, S, D)} {kw}"
+        rec = {"shape": [B, H, Hkv, S, D], "mask": kw,
+               "out_max_abs_err": _check_close(o_k, o_r, f"train attention {what}")}
+        for name, a, b in zip(("dq", "dk", "dv"), g_k, g_r):
+            err, scale = float((a - b).abs().max()), float(b.abs().max())
+            rec[name] = {"max_abs_err": err, "max_abs": scale}
+            if not err <= ATTN_GRAD_TOL * scale:
+                raise AssertionError(f"attention gradient {name} disagrees at {what}: "
+                                     f"{err} > {ATTN_GRAD_TOL} x {scale}")
+        out.append(rec)
+        del res, g_k, g_r, q, k, v, w
+    torch.cuda.empty_cache()
+    return {"cases": out, "tolerance": f"{ATTN_GRAD_TOL} x max |gradient|"}
+
+
+def _attn_train_times(dev) -> dict:
+    """flash_attn at starcoder2-3b's training shape (B 2, H 24 / Hkv 2,
+    S 1024, D 128, float32, causal): the kernel forward beside its plain
+    version and `scaled_dot_product_attention`, then the backward
+    (`grad.mha_backward`, torch ops) beside SDPA's backward, KV heads
+    repeated outside the timed calls."""
+    from repro_torch.kernels.flash_attn.grad import mha_backward
+    from repro_torch.kernels.flash_attn.ops import mha
+    from repro_torch.kernels.flash_attn.ref import mha_ref
+
+    B, H, Hkv, S, D = TRAIN_BATCH, 24, 2, TRAIN_SEQ, 128
+    rng = np.random.default_rng(SEED + 8)
+    q, k, v = _attn_inputs(rng, B, H, Hkv, S, S, D, torch.float32, dev, strided=True)
+    dout = torch.from_numpy(rng.standard_normal((B, H, S, D), dtype=np.float32)).to(dev)
+    err = _check_close(mha(q, k, v), mha_ref(q, k, v), "starcoder2 training shape")
+    pairs = _visible_pairs(S, S, True, None)
+    nbytes = 4 * (2 * q.numel() + k.numel() + v.numel())
+    t_ops, t_bytes = 4 * D * pairs * B * H / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    kr, vr = (t.repeat_interleave(H // Hkv, dim=1) for t in (k, v))
+    rec = {"shape": {"B": B, "H": H, "Hkv": Hkv, "S": S, "D": D, "dtype": "float32"},
+           "mask": {"causal": True}, "max_abs_err": err,
+           "ms": gpu_ms(lambda: mha(q, k, v), reps=5, inner=5),
+           "plain_ms": gpu_ms(lambda: mha_ref(q, k, v), reps=3, inner=2, warmup=1),
+           "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "library_ms": gpu_ms(lambda: sdpa(q, kr, vr, is_causal=True), reps=5, inner=5),
+           "library_call": "scaled_dot_product_attention(is_causal=True), float32, "
+                           "KV heads repeated"}
+    # backward: recompute the scores (2·D per pair), dV, dP, dQ, dK (2·D each)
+    b_ops = 10 * D * pairs * B * H / PEAK_F32_FLOPS * 1e3
+    b_bytes = 4 * (3 * q.numel() + 3 * k.numel() + 3 * v.numel()) / PEAK_BYTES_PER_S * 1e3
+    lq, lk, lv = (t.detach().requires_grad_() for t in (q, kr, vr))
+    lo = sdpa(lq, lk, lv, is_causal=True)
+    rec["backward"] = {
+        "route": "torch ops (kernels/flash_attn/grad.py)",
+        "ms": gpu_ms(lambda: mha_backward(q, k, v, dout), reps=5, inner=3),
+        "bound_ms": max(b_ops, b_bytes), "bound_by": "operations" if b_ops >= b_bytes else "bytes",
+        "library_ms": gpu_ms(lambda: torch.autograd.grad(lo, (lq, lk, lv), dout,
+                                                         retain_graph=True), reps=5, inner=3),
+        "library_call": "scaled_dot_product_attention backward, float32, KV heads repeated"}
+    return rec
+
+
+@contextlib.contextmanager
+def _train_depth(n_layers: int):
+    """`launch.train` building TRAIN_ARCH with `n_layers` layers (full
+    width): the two-layer checks drive the launcher as a user does."""
+    from repro_torch.launch import train as train_launch
+
+    orig = train_launch.get_config
+    train_launch.get_config = lambda arch: dataclasses.replace(orig(arch), n_layers=n_layers)
+    try:
+        yield train_launch
+    finally:
+        train_launch.get_config = orig
+
+
+def _rel_err(got, exp) -> float:
+    return float((got.cpu() - exp).abs().max()) / max(float(exp.abs().max()), 1e-30)
+
+
+# AdamW's step g / (|g| + eps), eps = 1e-8: where |g| is within a few
+# hundred eps the step turns on the gradient's last float32 digits, which
+# two summation orders (the card's and the CPU's; two CPU thread counts do
+# the same) leave different.  Parameters are held at TRAIN_STEP_RTOL where
+# |g| >= TINY_GRAD and within lr elsewhere; the moments everywhere.
+TINY_GRAD = 1e-6
+
+
+def _step_errors(card, cpu, lr: float) -> dict:
+    """Largest relative differences, over the leaves, of one card step's
+    parameters and AdamW moments against the CPU step's."""
+    from repro_torch.models.lm import tree_leaves as lm_leaves
+
+    m_c = lm_leaves(cpu[1]["adam"]["m"])
+    out = {"moments_max_rel_err": max(_rel_err(a, b) for a, b in zip(
+        lm_leaves([card[1]["adam"]["m"], card[1]["adam"]["v"]]),
+        lm_leaves([cpu[1]["adam"]["m"], cpu[1]["adam"]["v"]])))}
+    big, small, n_small = 0.0, 0.0, 0
+    for a, b, m in zip(lm_leaves(card[0]), lm_leaves(cpu[0]), m_c):
+        d = (a.cpu() - b).abs()
+        tiny = m.abs() < (1 - 0.9) * TINY_GRAD      # m = (1 - b1) g after one step
+        if (~tiny).any():
+            big = max(big, float(d[~tiny].max()) / max(float(b.abs().max()), 1e-30))
+        if tiny.any():
+            small = max(small, float(d[tiny].max()) / lr)
+            n_small += int(tiny.sum())
+    out.update({"params_max_rel_err": big, "tiny_grad_elements": n_small,
+                "tiny_grad_params_max_err_over_lr": small})
+    return out
+
+
+def _train_two_layer_checks(dev) -> dict:
+    """At starcoder2-3b's full width with two layers, batch 1 x 256: one
+    train step on the card against the same step on the host's CPU (the
+    plain versions) from the same parameters and batch; one launcher step
+    with --compress-grads; save at step 2 and resume to step 4 against an
+    uninterrupted 4-step run."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.models import lm
+    from repro_torch.train import steps
+
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=CHECK_LAYERS)
+    params = lm.init_params(torch.Generator(dev).manual_seed(SEED), cfg, torch.float32, dev)
+    host = lm.tree_map(lambda t: t.to("cpu", copy=True), params)
+    np_batch = TokenPipeline(vocab=cfg.vocab, seq_len=CHECK_SEQ, batch=CHECK_BATCH).next_batch()
+    runs, secs = {}, {}
+    for where, p in (("cuda", params), ("cpu", host)):
+        batch = {k_: torch.from_numpy(v_).to(p["embed"].device, torch.int64)
+                 for k_, v_ in np_batch.items()}
+        t0 = clock()
+        p, opt, m = steps.make_train_step(cfg, lr=1e-3)(p, steps.init_opt(cfg, p), batch)
+        runs[where] = (p, opt, {k_: float(v_) for k_, v_ in m.items()})
+        secs[where] = clock() - t0
+    gm, cm = runs["cuda"][2], runs["cpu"][2]
+    metric_err = {k_: abs(gm[k_] - cm[k_]) / abs(cm[k_]) for k_ in gm}
+    step_err = _step_errors(runs["cuda"], runs["cpu"], lr=1e-3)
+    del params, host, runs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    shutil.rmtree(TRAIN_CKPT_DIR, ignore_errors=True)
+    with _train_depth(CHECK_LAYERS) as train_launch:
+        plain = train_launch.main(CHECK_ARGV + ["--steps", "4"], device=dev)
+        compressed = train_launch.main(CHECK_ARGV + ["--steps", "1", "--compress-grads"],
+                                       device=dev)
+        t0 = clock()
+        train_launch.main(CHECK_ARGV + ["--steps", "2", "--ckpt-dir", TRAIN_CKPT_DIR,
+                                        "--ckpt-every", "100"], device=dev)
+        resumed = train_launch.main(CHECK_ARGV + ["--steps", "4", "--ckpt-dir", TRAIN_CKPT_DIR,
+                                                  "--ckpt-every", "100", "--resume"],
+                                    device=dev)
+        ckpt_s = clock() - t0
+    shutil.rmtree(TRAIN_CKPT_DIR, ignore_errors=True)
+    res = {"n_layers": CHECK_LAYERS, "batch": CHECK_BATCH, "seq": CHECK_SEQ,
+           "card_vs_cpu": {"card": gm, "cpu": cm, "metric_rel_err": metric_err, **step_err,
+                           "rtol": TRAIN_STEP_RTOL, "tiny_grad": TINY_GRAD, "seconds": secs},
+           "losses": plain, "compressed_first_loss": compressed[0],
+           "resumed_losses": resumed, "save_resume_seconds": ckpt_s}
+    if not (max(metric_err.values()) <= TRAIN_STEP_RTOL
+            and step_err["moments_max_rel_err"] <= TRAIN_STEP_RTOL
+            and step_err["params_max_rel_err"] <= TRAIN_STEP_RTOL
+            and step_err["tiny_grad_params_max_err_over_lr"] <= 1.0):
+        raise AssertionError(f"train: the card's step disagrees with the CPU's: {res}")
+    if not (np.isfinite(compressed[0]) and abs(compressed[0] - plain[0]) <= 1e-6 * abs(plain[0])):
+        raise AssertionError(f"train: the compressed run's first loss {compressed[0]} != "
+                             f"the plain run's {plain[0]}")
+    if not np.allclose(resumed, plain[2:], rtol=1e-5, atol=0):
+        raise AssertionError(f"train: resumed losses {resumed} != uninterrupted {plain[2:]}")
+    return res
+
+
+def _train_profile(dev) -> None:
+    """starcoder2-3b's training run again, 3 steps under TRAIN_ARGV's
+    shapes, with torch.profiler over steps 2 and 3 (step 1 warms up):
+    device time by kernel, busy and idle share, as a `train_profile`
+    line."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch import train as train_launch
+
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    mark = {}
+
+    def on_step(step, loss, seconds):
+        if step == 0:
+            mark["t0"] = clock()
+            prof.start()
+        elif step == 2:
+            mark["wall"] = clock() - mark["t0"]
+            prof.stop()
+
+    argv = TRAIN_ARGV[:TRAIN_ARGV.index("--steps")] + ["--steps", "3", "--log-every", "1"]
+    train_launch.main(argv, device=dev, on_step=on_step)
+    emit("train_profile", {"steps": 2, **_profile_summary(prof, mark["wall"])})
+
+
+def phase_train(profile: bool = False) -> tuple[dict, dict]:
+    """(a) the attention gradient with the kernel forward against the
+    plain version's, and the kernel and its torch-op backward timed at the
+    training shape; (b) starcoder2-3b at full width and depth in float32
+    through `launch.train.main(TRAIN_ARGV)`, per step loss, seconds and
+    flash_attn launches, peak memory; (c) the two-layer checks; with
+    `profile`, (b) again under torch.profiler afterwards.  Returns the
+    launch counts of (b) and flash_attn's times at the training shape."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as train_launch
+    from repro_torch.models import lm
+
+    dev = torch.device("cuda")
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    print(f"train: torch.backends.cuda.matmul.allow_tf32 = {tf32}", flush=True)
+    if tf32:
+        raise AssertionError("train: TF32 matmuls are on; the float32 checks need them off")
+    grads = _attn_grad_checks(dev)
+    times = _attn_train_times(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg = get_config(TRAIN_ARCH)
+    per_step = []
+    mark = [0]
+
+    def on_step(step, loss, seconds):
+        fa = kernels.launch_counts()["flash_attn"]
+        per_step.append({"step": step, "loss": loss, "seconds": seconds,
+                         "flash_attn_launches": fa - mark[0]})
+        mark[0] = fa
+
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = clock()
+    losses = train_launch.main(TRAIN_ARGV, device=dev, on_step=on_step)
+    wall = clock() - t0
+    launches = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    step_s = [r["seconds"] for r in per_step]
+    median = float(np.median(step_s[1:]))
+    full = {"arch": TRAIN_ARCH, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+            "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads, "d_ff": cfg.d_ff,
+            "vocab": cfg.vocab, "params": lm.param_count(cfg), "dtype": "float32",
+            "tf32": tf32, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": per_step,
+            "step_seconds_median_2_to_6": median,
+            "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / median,
+            "peak_device_bytes": peak,
+            "peak_device_bytes_reserved": torch.cuda.max_memory_reserved(),
+            "wall_s_with_init": wall, "kernel_launches": launches,
+            "reduced": "train_4k's batch 256 x 4096 tokens cut to 2 x 1024: one card's 80 GB"}
+    gc.collect()
+    torch.cuda.empty_cache()
+    two = _train_two_layer_checks(dev)
+    emit("train", {"attention_grad": grads, "attention_at_training_shape": times,
+                   "full_width": full, "two_layer": two})
+    if not (len(losses) == TRAIN_STEPS and all(np.isfinite(losses))):
+        raise AssertionError(f"train: losses {losses}")
+    if any(r["flash_attn_launches"] != cfg.n_layers for r in per_step):
+        raise AssertionError(f"train: flash_attn launches per step "
+                             f"{[r['flash_attn_launches'] for r in per_step]}, expected "
+                             f"{cfg.n_layers} (forward only)")
+    if profile:
+        gc.collect()
+        torch.cuda.empty_cache()
+        _train_profile(dev)
+    return launches, {"flash_attn": {"starcoder2_train_f32": times}}
+
+
 KERNEL_META = {
     "ntt_fwd": ("src/repro_torch/kernels/csrc/ntt.cu", "src/repro/kernels/ntt/ntt.py:68"),
     "ntt_inv": ("src/repro_torch/kernels/csrc/ntt.cu", "src/repro/kernels/ntt/ntt.py:92"),
@@ -1753,7 +2077,8 @@ KERNEL_META = {
     "flash_attn": ("src/repro_torch/kernels/csrc/flash_attn.cu",
                    "src/repro/kernels/flash_attn/flash_attn.py:74"),
 }
-PHASES = ("kernels", "micro", "main", "workload", "shard", "serve", "scan", "mesh")
+PHASES = ("kernels", "micro", "main", "workload", "shard", "serve", "scan", "mesh",
+          "train")
 
 
 def main() -> None:
@@ -1763,7 +2088,8 @@ def main() -> None:
                          f"gemma2-27b prefill and decode on the flash_attn kernel)")
     ap.add_argument("--profile", action="store_true",
                     help="run the main phase under torch.profiler, and the serve "
-                         "phase once more under it, and report device time by kernel")
+                         "and train phases once more under it, and report device "
+                         "time by kernel")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
     unknown = phases - set(PHASES)
@@ -1822,6 +2148,13 @@ def main() -> None:
         gc.collect()
         torch.cuda.empty_cache()
         by_path["mesh"] = phase_mesh(q1_stats)
+    if "train" in phases:
+        bk = db = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        by_path["train"], train_times = phase_train(profile=args.profile)
+        for name, at in train_times.items():
+            timings.setdefault(name, {}).setdefault("at_shapes", {}).update(at)
 
     records = []
     for name, (source, replaces) in KERNEL_META.items():

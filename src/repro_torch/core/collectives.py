@@ -1,10 +1,11 @@
 """The collectives over a device mesh's named axes, on torch.distributed.
 
 The HE core (bfv.kswitch_gathered) and the query engine
-(engine/sharded.py) split work by rank through these helpers; the mesh
-factories live in launch/mesh.py.  The port runs one process per rank on
-replicated state (every rank holds every ciphertext and key), so a
-collective here is the only place where ranks exchange data.
+(engine/sharded.py) split work by rank through these helpers, and
+gradient compression (train/compression.compressed_psum) sums over them;
+the mesh factories live in launch/mesh.py.  The port runs one process
+per rank on replicated state (every rank holds every ciphertext and
+key), so a collective here is the only place where ranks exchange data.
 """
 from __future__ import annotations
 
@@ -45,4 +46,12 @@ def sum_axis(t: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     """Sum `t` in place over the ranks of `axis` and return it."""
     if mesh_axes(mesh).get(axis, 1) > 1:
         dist.all_reduce(t, group=mesh.get_group(axis))
+    return t
+
+
+def max_axis(t: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """The elementwise maximum of `t` over the ranks of `axis`, in place;
+    returns `t`."""
+    if mesh_axes(mesh).get(axis, 1) > 1:
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=mesh.get_group(axis))
     return t

@@ -8,8 +8,9 @@ its shape and axis names (`mesh.production_mesh_shape`).
 The fields only a compiler gives — flops, HLO bytes, temporary and peak
 bytes, collective bytes parsed from HLO, lower and compile seconds — are
 null, each with its reason under `null_reasons`.  The language-model
-cells need the training slice (`make_train_step`, `adamw_init`), which
-the port does not have yet: they are recorded as skipped.
+cells are recorded as skipped: the training slice is ported, but their
+parameter placements come from the reference's `repro.dist.sharding`,
+which is not in the tree.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch nshedb --shape scan_2m
@@ -36,8 +37,8 @@ NULL_REASONS = {
     "collective_bytes": "parsed from the optimized HLO; " + _NO_COMPILER,
     "collective_total": "parsed from the optimized HLO; " + _NO_COMPILER,
 }
-LM_SKIP = ("needs the training slice (make_train_step, adamw_init), "
-           "which the port does not have yet")
+LM_SKIP = ("the training slice is ported, but the cell's parameter placements "
+           "come from repro.dist.sharding, which is not in the tree")
 
 
 def bytes_per_device(spec: torch.Tensor, placement, axis_sizes: dict) -> int:

@@ -11,6 +11,7 @@ Entry points, shared by every architecture:
   forward(..., caches=filled, pos=ctx_len)              decode (S=1)
   forward_hidden + unembed                              the same, split at
                                                         the tied head
+  loss_fn(..., tokens, labels)                          training loss
   enc-dec (whisper): the non-causal encoder stack runs on the
   frontend-stub embeddings; decoder blocks add cross-attention over it.
 """
@@ -205,6 +206,19 @@ def caches_from_numpy(tree, device="cuda"):
 # Forward.
 # ---------------------------------------------------------------------------
 
+def _unstack(stack) -> list:
+    """The layers of a stacked tree, each a tree of views: one
+    `torch.unbind` per leaf, whose backward stacks the layers' gradients
+    once (indexing each layer instead would add a zero tensor the size of
+    the whole stack per layer)."""
+    per_leaf = [a.unbind(0) for a in tree_leaves(stack)]
+    layers = []
+    for i in range(len(per_leaf[0]) if per_leaf else 0):
+        it = iter(leaves[i] for leaves in per_leaf)
+        layers.append(tree_map(lambda _: next(it), stack))
+    return layers
+
+
 def _run_units(params_units, caches_units, x, cfg, *, pos, causal, enc_out,
                unit=None):
     """One unit body per layer over the stacked unit parameters; the new
@@ -215,10 +229,11 @@ def _run_units(params_units, caches_units, x, cfg, *, pos, causal, enc_out,
         pstack = params_units[s]
         cstack = caches_units[s] if caches_units is not None else None
         count = tree_leaves(pstack)[0].shape[0]
+        p_layers = _unstack(pstack)
+        c_layers = _unstack(cstack) if cstack is not None else [None] * count
         stack = None
         for i in range(count):
-            p_i = tree_map(lambda a: a[i], pstack)
-            c_i = tree_map(lambda a: a[i], cstack) if cstack is not None else None
+            p_i, c_i = p_layers[i], c_layers[i]
             x, nc = apply_block(p_i, x, kind, cfg, cache=c_i, pos=pos,
                                 causal=causal, enc_out=enc_out)
             if cstack is None:
@@ -295,3 +310,15 @@ def forward(params, cfg: ModelConfig, tokens=None, embeds=None, caches=None,
                                    caches=caches, pos=pos, enc_embeds=enc_embeds,
                                    patches=patches)
     return unembed(params, cfg, x), new_caches
+
+
+def loss_fn(params, cfg: ModelConfig, tokens, labels, embeds=None,
+            enc_embeds=None, patches=None):
+    """Mean next-token cross-entropy: float32 logits, logsumexp minus the
+    gold logit.  labels: (B, S) integer tensor."""
+    logits, _ = forward(params, cfg, tokens=tokens, embeds=embeds,
+                        enc_embeds=enc_embeds, patches=patches)
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return (logz - gold).mean()

@@ -354,3 +354,83 @@ def test_cuda_kernel_matches_plain_version(cuda_device, dtype):
         exp = mha_ref(q, k, v, **kwargs)
         torch.cuda.synchronize()
         assert float((got.float() - exp.float()).abs().max()) <= FLASH_TOL[DTYPES[dtype]]
+
+
+# ------------------------------------------------------- LM training
+# (B, H, Hkv, S, Sk, D, kwargs): starcoder2's heads at a short length, the
+# gemma2 softcap and window with GQA 2:1, cross-attention, and S past one
+# 2048-query chunk of the backward
+GRAD_CASES = [
+    (1, 24, 2, 256, 256, 128, dict(causal=True)),
+    (1, 4, 2, 300, 300, 128, dict(causal=True, window=100, softcap=50.0)),
+    (2, 4, 4, 96, 160, 64, dict(causal=False)),
+    (1, 2, 1, 2100, 2100, 64, dict(causal=True)),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", GRAD_CASES, ids=[f"g{i}" for i in range(len(GRAD_CASES))])
+def test_cuda_attention_gradients_match_plain_version(cuda_device, case):
+    """`mha` under autograd on the card (the flash_attn kernel forward, the
+    torch-op backward) against autograd through `mha_ref` on the card, in
+    float32: dq, dk, dv within 1e-4 of the largest |gradient|."""
+    B, H, Hkv, Sq, Sk, D, kwargs = case
+    q, k, v = (t.to(cuda_device) for t in _qkv(B, H, Hkv, Sq, Sk, D, torch.float32, seed=6))
+    if "softcap" in kwargs:
+        q = q * 12
+    w = torch.randn((B, H, Sq, D), generator=torch.Generator().manual_seed(1)).to(cuda_device)
+    grads = []
+    for fn in (fa_ops.mha, mha_ref):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        before = kernels.launch_counts()["flash_attn"]
+        out = fn(*leaves, **kwargs)
+        assert out.grad_fn is not None
+        grads.append(torch.autograd.grad((out * w).sum(), leaves))
+        launched = kernels.launch_counts()["flash_attn"] - before
+        assert launched == (1 if fn is fa_ops.mha else 0)
+    torch.cuda.synchronize()
+    for got, exp in zip(*grads):
+        assert float((got - exp).abs().max()) <= 1e-4 * float(exp.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["starcoder2-3b", "gemma2-27b"])
+def test_cuda_train_step_equals_cpu(cuda_device, arch):
+    """Two train steps of a smoke config on the card and on the CPU from the
+    same parameters and batches: losses, gradient norms and AdamW moments
+    within 1e-4 relative (matmuls and the attention forward sum in other
+    orders); parameters too, but where |m| < 1e-7 (|g| below about 1e-6 =
+    100 AdamW eps, where g / (|g| + eps) turns on float32 rounding) within
+    lr a step; one flash_attn launch per attention layer a step."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.models import lm
+    from repro_torch.train import steps
+
+    cfg = get_smoke_config(arch)
+    init = lm.init_params(torch.Generator().manual_seed(0), cfg, torch.float32, "cpu")
+    runs = {}
+    for dev in ("cpu", cuda_device):
+        params = lm.tree_map(lambda t: t.to(dev, copy=True), init)
+        opt = steps.init_opt(cfg, params)
+        step = steps.make_train_step(cfg, lr=1e-3)
+        pipe = TokenPipeline(vocab=cfg.vocab, seq_len=32, batch=2)
+        metrics = []
+        kernels.reset_launch_counts()
+        for _ in range(2):
+            batch = {k: torch.from_numpy(v).to(dev, torch.int64)
+                     for k, v in pipe.next_batch().items()}
+            params, opt, m = step(params, opt, batch)
+            metrics.append([float(m["loss"]), float(m["grad_norm"])])
+        runs[str(dev)] = (metrics, params, opt, kernels.launch_counts()["flash_attn"])
+    (cm, cp, co, c_launch), (gm, gp, go, g_launch) = runs["cpu"], runs[str(cuda_device)]
+    assert c_launch == 0 and g_launch == 2 * cfg.n_layers
+    np.testing.assert_allclose(gm, cm, rtol=1e-4)
+    for got, exp in zip(lm.tree_leaves([go["adam"]["m"], go["adam"]["v"]]),
+                        lm.tree_leaves([co["adam"]["m"], co["adam"]["v"]])):
+        assert float((got.cpu() - exp).abs().max()) <= 1e-4 * float(exp.abs().max())
+    for got, exp, m in zip(lm.tree_leaves(gp), lm.tree_leaves(cp),
+                           lm.tree_leaves(co["adam"]["m"])):
+        d, tiny = (got.cpu() - exp).abs().numpy(), (m.abs() < 1e-7).numpy()
+        assert float(d[~tiny].max(initial=0.0)) <= 1e-4 * float(exp.abs().max())
+        assert float(d[tiny].max(initial=0.0)) <= 2 * 1e-3

@@ -43,7 +43,7 @@ from repro_torch.launch import dryrun
 from repro_torch.launch import mesh as tmesh
 
 from torch_cases import bfv_shard_db, bfv_shard_oracle, bfv_shard_plans, sharded_run
-from torch_mesh_ranks import MICRO, Ranks
+from torch_mesh_ranks import MICRO, Ranks, compressed_psum_expected
 
 JAX = dict(backend=jbackend, executor=jexecutor, plan=jplan, planner=jplanner,
            queries=jqueries, schema=jschema, sharded=jsharded, storage=jstorage, tpch=jtpch)
@@ -67,7 +67,8 @@ def _one_torch_thread():
 def started(tmp_path_factory):
     """Two and four gloo ranks, started before the reference runs so that
     both proceed together."""
-    started = {2: Ranks(2, ["fold", "bfv_fold", "mock_q1", "bfv_1x2", "auto", "kswitch"],
+    started = {2: Ranks(2, ["fold", "bfv_fold", "mock_q1", "bfv_1x2", "auto", "kswitch",
+                            "compressed_psum"],
                         tmp_path_factory.mktemp("mesh2")),
                4: Ranks(4, ["bfv_2x2", "auto", "kswitch"], tmp_path_factory.mktemp("mesh4"))}
     yield started
@@ -108,6 +109,20 @@ def test_sharded_fold_matches_numpy(ranks):
         # pads excluded: live=4 differs
         np.testing.assert_array_equal(res["live4"], data.sum(axis=0))
         assert not np.array_equal(res["live4"], data[:3].sum(axis=0))
+
+
+def test_compressed_psum_matches_numpy(ranks):
+    """Two ranks with gradients of different scales: both get the numpy
+    formula's sum (the same float32 operations: tolerance 0), which is
+    within half a bin a rank of the exact sum."""
+    res = ranks[2]["compressed_psum"]
+    gs = [r["g"] for r in res]
+    exp = compressed_psum_expected(gs)
+    scale = max(np.abs(g).max() for g in gs) / 127
+    for r in res:
+        np.testing.assert_array_equal(r["out"], exp)
+    assert np.abs(exp - np.sum(gs, axis=0)).max() <= len(gs) * scale / 2 * (1 + 1e-5)
+    assert not np.array_equal(gs[0], gs[1])
 
 
 def test_bfv_fold_on_real_mesh_parity(ranks):

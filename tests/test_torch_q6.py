@@ -208,9 +208,12 @@ def test_later_slices_raise_not_implemented():
     a context carrying anything but a torch DeviceMesh raises where the
     batch is placed, and a fold whose lanes do not split over the data
     axis runs on one device.  The dry-run's input specs are meta tensors.
-    What stays for a later slice raises: the training step."""
+    The training step is ported (tests/test_torch_train.py); what stays
+    for a later slice raises: the launcher's sharded training
+    (`--production-mesh`)."""
     from repro_torch.configs import get_config, registry
     from repro_torch.engine import sharded as tsharded
+    from repro_torch.launch import train
     from repro_torch.train import steps
 
     tdb = ttpch.load(tbackend.MockBackend(tnoise.NoiseProfile(n=64, t=65537, k=30)),
@@ -228,10 +231,10 @@ def test_later_slices_raise_not_implemented():
             bk.stack_blocks(blocks)
         np.testing.assert_array_equal(bk.decrypt(bk.fold_blocks(bk.ctx.stack_cts(blocks))), base)
     cfg = get_config("gemma2-27b")
-    with pytest.raises(NotImplementedError):
-        steps.make_train_step(cfg)
-    with pytest.raises(NotImplementedError):
-        steps.init_opt(cfg, {})
+    assert callable(steps.make_train_step(cfg))
+    assert set(steps.init_opt(cfg, {"w": torch.zeros(2)})) == {"adam"}
+    with pytest.raises(ValueError, match="repro.dist.sharding"):
+        train.main(["--arch", "gemma2-27b", "--smoke", "--production-mesh"], device="cpu")
     specs = registry.input_specs(cfg, "train_4k")
     assert specs["tokens"].device.type == "meta" and tuple(specs["tokens"].shape) == (256, 4096)
 

@@ -156,9 +156,32 @@ def case_kswitch(device):
     return out
 
 
+def case_compressed_psum(device):
+    """`train.compression.compressed_psum` of this rank's gradient (its
+    own seed and scale) over the ("data",) axis of every rank."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.train.compression import compressed_psum
+    rank = dist.get_rank()
+    g = (np.random.default_rng(rank).standard_normal((64, 8)) * (rank + 1)).astype(np.float32)
+    out = compressed_psum(torch.from_numpy(g).to(device), make_host_mesh(device=device), "data")
+    return {"g": g, "out": out.cpu().numpy()}
+
+
+def compressed_psum_expected(gs) -> np.ndarray:
+    """The numpy formula of `compressed_psum` over the ranks' gradients
+    `gs`: one scale from the largest |g| of any rank, each g rounded half
+    to even to int8 bins, the int32 sum of the bins times the scale, all
+    in float32."""
+    scale = np.maximum(np.float32(max(np.abs(g).max() for g in gs)) / np.float32(127.0),
+                       np.float32(1e-12))
+    bins = [np.clip(np.round(g / scale), -127, 127).astype(np.int32) for g in gs]
+    return (np.sum(bins, axis=0).astype(np.float32) * scale).astype(np.float32)
+
+
 CASES = {fn.__name__[5:]: fn for fn in (case_fold, case_bfv_fold, case_mock_q1,
                                          case_bfv_1x2, case_bfv_2x2, case_auto,
-                                         case_kswitch)}
+                                         case_kswitch, case_compressed_psum)}
 
 
 def _rank_main(rank, world, work_dir, names, device):
