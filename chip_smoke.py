@@ -10,7 +10,8 @@ full width and depth, and its training path at starcoder2-3b's:
             rotate_reduce exactly, both NTTs at every n = 2 .. 32768,
             flash_attn within 1e-4 in float32 and 2e-2 in bfloat16 on
             its tile edges too), then timed at its main path's shapes;
-  micro     the quickstart query at micro parameters;
+  micro     the quickstart twin (`examples/quickstart_torch.py`) at micro
+            parameters;
   main      encrypted TPC-H Q6 (the legacy `run_q6` body) on real BFV
             ciphertexts, checked against the numpy oracle;
   workload  TPC-H Q1 through the compiled DAG (`run_via_plan`, static
@@ -18,6 +19,14 @@ full width and depth, and its training path at starcoder2-3b's:
             cross-query scheduler `run_workload([Q1, Q6])` on
             `MockBackend(kernel_reduce=True)`, whose `sum_slots` runs the
             rotate_reduce kernel; every result checked against its oracle;
+  tpch      the paper's join queries on the same keys: TPC-H Q12 and Q19
+            through `run_via_plan` on LINEITEM at 32,768 rows (one block)
+            with ORDERS and PART cut (`TPCH_SCALE`), each against its
+            oracle with no refresh but those the planner placed (Q19
+            refreshes its three translated part masks), batched circuits
+            in lane chunks sized to the card's free memory; beside each,
+            the plan's OpStats on `MockBackend` at the paper's noise
+            profile;
   shard     sharded execution on logical shard contexts, under the same
             keys: Q1 on LINEITEM at 65,536 rows (two blocks) unsharded, at
             shards=2 x limb_shards=4, and at shards=2 losing a worker
@@ -63,7 +72,7 @@ full width and depth, and its training path at starcoder2-3b's:
     python3 chip_smoke.py            # needs one NVIDIA GPU and nvcc
 
 Output: one JSON object per line (`env`, `kernel_checks`, `micro`,
-`main`, `workload`, `shard`, `shard_chaos`, `serve_consistency`, `serve`,
+`main`, `workload`, `tpch`, `shard`, `shard_chaos`, `serve_consistency`, `serve`,
 `scan`, `mesh`, `train`, `kernels`),
 the card's name and power limit as nvidia-smi prints them, and as the
 last line `{"ok": true, "device": {...}}`.  Any failed phase raises, so
@@ -111,7 +120,7 @@ SEED = 0
 # the kernels under every BFV ciphertext operation (core/limbops.py)
 BFV_KERNELS = ("ntt_fwd", "ntt_inv", "mul_mod", "add_mod", "sub_mod")
 # the kernels each driven path must launch
-PATH_KERNELS = {"main": BFV_KERNELS, "workload_q1_bfv": BFV_KERNELS,
+PATH_KERNELS = {"main": BFV_KERNELS, "workload_q1_bfv": BFV_KERNELS, "tpch": BFV_KERNELS,
                 "workload_mock": ("rotate_reduce",), "shard_q1_bfv": BFV_KERNELS,
                 "shard_chaos_mock": ("rotate_reduce",), "serve": ("flash_attn",),
                 "scan": ("mul_mod", "add_mod"), "mesh": BFV_KERNELS, "train": ("flash_attn",)}
@@ -630,37 +639,21 @@ def _flash_attn_kernel(rng, dev) -> tuple[dict, dict]:
 
 # ------------------------------------------------------------------- micro
 def phase_micro() -> None:
-    """The quickstart query at micro parameters through the port."""
-    from repro_torch.core.params import make_params
-    from repro_torch.engine.backend import BFVBackend
-    from repro_torch.engine.plan import Agg, And, Factor, Pred
-    from repro_torch.engine.planner import Planner
-    from repro_torch.engine.schema import ColumnSpec, TableSchema
-    from repro_torch.engine.storage import Database
+    """The quickstart twin (`examples/quickstart_torch.py`) on the card."""
+    import importlib.util
 
+    spec = importlib.util.spec_from_file_location(
+        "quickstart_torch", os.path.join(HERE, "examples", "quickstart_torch.py"))
+    quickstart = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(quickstart)
     t0 = time.perf_counter()
-    bk = BFVBackend(make_params(n=128, t=257, k=12), seed=0)
-    rng = np.random.default_rng(42)
-    n = 50
-    data = {"day": rng.integers(1, 101, n), "price": rng.integers(1, 101, n),
-            "qty": rng.integers(1, 11, n)}
-    schema = TableSchema("sales", [ColumnSpec("day", "int"), ColumnSpec("price", "int"),
-                                   ColumnSpec("qty", "int")])
-    db = Database(bk)
-    db.load_table(schema, data, n)
-    pl = Planner(db, optimized=True)
-    tbl = db.tables["sales"]
-    mask = pl.where_mask(tbl, And((Pred("day", "<", 50), Pred("qty", ">=", 3))))
-    total = pl.aggregate(tbl, Agg("sum", (Factor("price"),), "s"), mask)
-    cnt = pl.aggregate(tbl, Agg("count", (), "c"), mask)
-    sel = (data["day"] < 50) & (data["qty"] >= 3)
-    got = {"sum": int(bk.decrypt(total)[0]), "count": int(bk.decrypt(cnt)[0])}
-    exp = {"sum": int(data["price"][sel].sum()) % bk.t, "count": int(sel.sum())}
+    with contextlib.redirect_stdout(sys.stderr):
+        out = quickstart.main([], device="cuda")
     torch.cuda.synchronize()
-    res = {"got": got, "expected": exp, "refresh": bk.stats.refresh,
+    res = {"got": out["got"], "expected": out["expected"], "refresh": out["stats"].refresh,
            "seconds": round(time.perf_counter() - t0, 3)}
     emit("micro", res)
-    if got != exp or bk.stats.refresh != 0:
+    if out["got"] != out["expected"] or out["stats"].refresh != 0:
         raise AssertionError(f"micro query wrong: {res}")
 
 
@@ -795,14 +788,14 @@ def phase_main(paper, profile: bool = False):
 
 
 # ---------------------------------------------------------------- workload
-def _q1_via_plan(bk, pl, faults_plan=None) -> dict:
-    """TPC-H Q1 through `run_via_plan(pl, plan_q1())` on real ciphertexts,
-    static verification on (the planner's default), optionally under
-    `faults.inject(faults_plan)`.  Stage seconds come from the executor's
-    own stage boundaries (`ExecReport.record`), the verifier's from
-    `verify_compiled`; the decrypts are timed apart and are part of the
-    aggregate stage.  Launch counts are set to 0 just before the query and
-    read just after."""
+def _via_plan(bk, pl, faults_plan=None, plan=None) -> dict:
+    """A TPC-H plan (`plan_q1()` when None) through `run_via_plan(pl, plan)`
+    on real ciphertexts, static verification on (the planner's default),
+    optionally under `faults.inject(faults_plan)`.  Stage seconds come from
+    the executor's own stage boundaries (`ExecReport.record`), the
+    verifier's from `verify_compiled`; the decrypts are timed apart and are
+    part of the aggregate stage.  Launch counts are set to 0 just before
+    the query and read just after."""
     from repro_torch import kernels
     from repro_torch.engine import executor, queries, verify
     from repro_torch.runtime import faults
@@ -810,6 +803,7 @@ def _q1_via_plan(bk, pl, faults_plan=None) -> dict:
     bk.stats.reset()
     bk.op_log.clear()
     bk.refresh_log.clear()
+    bk.lane_log.clear()
     secs, seen = {}, {}
     mark = [0.0]
     orig_record, orig_verify, orig_decrypt = (
@@ -845,7 +839,7 @@ def _q1_via_plan(bk, pl, faults_plan=None) -> dict:
     t0 = clock()
     try:
         with scope:
-            got = queries.run_via_plan(pl, queries.plan_q1())
+            got = queries.run_via_plan(pl, plan or queries.plan_q1())
     finally:
         executor.ExecReport.record = orig_record
         verify.verify_compiled = orig_verify
@@ -858,7 +852,8 @@ def _q1_via_plan(bk, pl, faults_plan=None) -> dict:
             "verify": seen["verify"], "verify_findings": severities,
             "launches": kernels.launch_counts(), "ntt_launches_by_rows": ntt_launches_by_rows(),
             "modops_launches_by_shape": modops_launches_by_shape(),
-            "op_stats": dataclasses.asdict(bk.stats),
+            "op_stats": dataclasses.asdict(bk.stats), "refresh_log": list(bk.refresh_log),
+            "lane_chunks": list(bk.lane_log),
             "peak_device_bytes": torch.cuda.max_memory_allocated()}
 
 
@@ -868,7 +863,7 @@ def workload_q1_bfv(bk, db) -> dict:
     from repro_torch.engine import queries
     from repro_torch.engine.planner import Planner
 
-    run = _q1_via_plan(bk, Planner(db, optimized=True))
+    run = _via_plan(bk, Planner(db, optimized=True))
     got, rep, vrep, launches = run["got"], run["report"], run["verify"], run["launches"]
     rep.validate()
     exp = queries.oracle_q1(db)
@@ -944,6 +939,101 @@ def workload_mock() -> dict:
     return launches
 
 
+# -------------------------------------------------------------------- tpch
+# The paper's join queries on real ciphertexts: LINEITEM at the paper's
+# 32,768 rows (one block, §5.1), its parents cut.  A join hop costs one
+# EQ circuit, one slot broadcast and one product per parent row, so the
+# parents set the phase's time.  At PART 192 some part meets a Q19
+# branch: its revenue is not 0.
+TPCH_SCALE = dict(lineitem=32768, orders=512, part=192)
+TPCH_TABLES = ["lineitem", "orders", "part"]
+MOCK_MATCH = ("mul", "rotate", "refresh", "max_depth")
+
+
+def phase_tpch(bk) -> dict:
+    """TPC-H Q12 (the orders -> lineitem hop: a CASE count partitioned on a
+    translated mask, column-to-column comparisons) and Q19 (three
+    part -> lineitem hops under an OR of ANDs) through
+    `run_via_plan(Planner(db, optimized=True), plan)` on `bk`
+    (`paper_params()`), static verification on, each against its oracle
+    and paying no refresh but the planned ones; beside each, the same
+    plan's OpStats on `MockBackend` at the paper's noise profile over the
+    same tables.  Returns the launch counts summed over both queries, each
+    set to 0 just before its query."""
+    from repro_torch.engine import queries, tpch
+    from repro_torch.engine.backend import MockBackend
+    from repro_torch.engine.planner import Planner
+
+    scale, full = tpch.Scale(**TPCH_SCALE), tpch.Scale()
+    reduced = [
+        f"lineitem: {scale.lineitem:,} rows, the paper's sample (SF-1: 6,001,215)",
+        f"orders: {scale.orders:,} rows of Scale()'s {full.orders:,} (SF-1: 1,500,000)",
+        f"part: {scale.part:,} rows of Scale()'s {full.part:,} (SF-1: 200,000)",
+        f"l_orderkey fan-out: {scale.lineitem / scale.orders:.0f} lines an order "
+        f"against TPC-H's about 4",
+        f"l_partkey fan-out: {scale.lineitem / scale.part:.0f} lines a part "
+        f"against TPC-H's about 30",
+    ]
+    t0 = clock()
+    db = tpch.load(bk, scale, tables=TPCH_TABLES)
+    load_s = clock() - t0
+    mdb = tpch.load(MockBackend(), scale, tables=TPCH_TABLES)
+    launches = {}
+    for qn in ("Q12", "Q19"):
+        plan_fn, _, oracle_fn = queries.QUERIES[qn]
+        run = _via_plan(bk, Planner(db, optimized=True), plan=plan_fn())
+        got, rep, vrep = run["got"], run["report"], run["verify"]
+        exp = oracle_fn(db)
+        mbk = mdb.bk
+        mbk.stats.reset()
+        t0 = time.perf_counter()
+        mgot = queries.run_via_plan(Planner(mdb, optimized=True), plan_fn())
+        mock_s = time.perf_counter() - t0
+        mstats = dataclasses.asdict(mbk.stats)
+        planned = sum(h["refresh"] for h in rep.history)
+        res = {
+            "query": qn, "path": "run_via_plan on BFVBackend(paper_params())",
+            "rows": {name: db.tables[name].nrows for name in TPCH_TABLES},
+            "reduced": reduced,
+            "got": got, "expected": exp, "equal_to_oracle": got == exp,
+            "seconds": {"load_encrypt": round(load_s, 3), "query": round(run["query_s"], 3),
+                        **{k: round(v, 3) for k, v in run["secs"].items()}},
+            "history": rep.history,
+            "depth": {"measured": rep.measured_depth, "predicted": rep.predicted_depth,
+                      "budget_levels": rep.budget_levels},
+            "op_stats": run["op_stats"], "refresh_log": run["refresh_log"],
+            "refreshes_placed": planned, "predicted_refreshes": rep.predicted_refreshes,
+            "verify_findings": run["verify_findings"],
+            "noise_budget_bits_at_last_decrypt": round(rep.decrypt_headrooms[-1], 2),
+            "min_noise_budget_bits": round(min(rep.decrypt_headrooms), 2),
+            "kernel_launches": run["launches"],
+            "ntt_launches_by_rows": run["ntt_launches_by_rows"],
+            "modops_launches_by_shape": run["modops_launches_by_shape"],
+            "lane_chunks": [{"circuit": c, "lanes": n, "per_chunk": k}
+                            for c, n, k in run["lane_chunks"]],
+            "peak_device_bytes": run["peak_device_bytes"],
+            "mock": {"op_stats": mstats, "equal_to_oracle": mgot == exp,
+                     "seconds": round(mock_s, 3),
+                     "matches_bfv": {f: mstats[f] == run["op_stats"][f] for f in MOCK_MATCH}},
+        }
+        emit("tpch", res)
+        rep.validate()
+        if got != exp:
+            raise AssertionError(f"{qn} on BFV disagrees with its oracle: {got} != {exp}")
+        if vrep.errors:
+            raise AssertionError(f"{qn} on BFV: verifier errors {[str(f) for f in vrep.errors]}")
+        unplanned = [what for what in run["refresh_log"] if not what.startswith("planned")]
+        if unplanned or bk.stats.refresh != planned:
+            raise AssertionError(f"{qn} on BFV: {bk.stats.refresh} refreshes, {planned} "
+                                 f"in the history, unplanned {unplanned}")
+        idle = [name for name in BFV_KERNELS if run["launches"][name] <= 0]
+        if idle:
+            raise AssertionError(f"{qn} on BFV launched no {idle} kernel")
+        for name, n in run["launches"].items():
+            launches[name] = launches.get(name, 0) + n
+    return launches
+
+
 # ------------------------------------------------------------------- shard
 SHARD_ROWS = 65536           # two blocks of n = 32768: a block axis to shard
 SHARD_CELL = (2, 4)          # (shards, limb_shards): k = 30 pads to 32 limbs
@@ -1010,15 +1100,15 @@ def shard_q1_bfv(paper, bk) -> dict:
 
     runs, launches = {}, {}
     pl_a = Planner(db, optimized=True)
-    runs["a"] = _q1_via_plan(bk, pl_a)
+    runs["a"] = _via_plan(bk, pl_a)
     runs["a"]["report"].validate()
     pl_b = Planner(db, optimized=True, shards=shards, limb_shards=limb_shards)
     one = ShardContext(1, limbs=bk.limbs, ring_n=bk.slots)
     _tee_ledger(pl_b.shard_ctx, one)
-    runs["b"] = _q1_via_plan(bk, pl_b)
+    runs["b"] = _via_plan(bk, pl_b)
     runs["b"]["report"].validate()
     pl_c = Planner(db, optimized=True, shards=2)
-    runs["c"] = _q1_via_plan(bk, pl_c, faults.FaultPlan(device_loss_stage="where",
+    runs["c"] = _via_plan(bk, pl_c, faults.FaultPlan(device_loss_stage="where",
                                                          device_loss_worker=1))
     for name in BFV_KERNELS:
         launches[name] = sum(r["launches"][name] for r in runs.values())
@@ -1592,7 +1682,7 @@ def _mesh_q1(expect_stats) -> dict:
     bk, db, secs = load_paper_lineitem(paper_params())
     pl = Planner(db, optimized=True, shards=MESH_GRID[0], limb_shards=MESH_GRID[1])
     mesh = pl.shard_ctx.mesh
-    run = _q1_via_plan(bk, pl)
+    run = _via_plan(bk, pl)
     ledger = pl.shard_ctx.ledger_snapshot()
     exp = queries.oracle_q1(db)
     data_axis = _mesh_data_axis(bk, mesh)
@@ -2077,8 +2167,8 @@ KERNEL_META = {
     "flash_attn": ("src/repro_torch/kernels/csrc/flash_attn.cu",
                    "src/repro/kernels/flash_attn/flash_attn.py:74"),
 }
-PHASES = ("kernels", "micro", "main", "workload", "shard", "serve", "scan", "mesh",
-          "train")
+PHASES = ("kernels", "micro", "main", "workload", "tpch", "shard", "serve", "scan",
+          "mesh", "train")
 
 
 def main() -> None:
@@ -2105,7 +2195,7 @@ def main() -> None:
     from repro_torch.engine.planner import Planner
 
     phase_env()
-    paper = paper_params() if phases & {"kernels", "main", "workload", "shard"} else None
+    paper = paper_params() if phases & {"kernels", "main", "workload", "tpch", "shard"} else None
     timings = phase_kernels(paper) if "kernels" in phases else {}
     if "micro" in phases:
         phase_micro()
@@ -2119,7 +2209,13 @@ def main() -> None:
             bk, db, _ = load_paper_lineitem(paper)
         by_path["workload_q1_bfv"], q1_stats = workload_q1_bfv(bk, db)
         by_path["workload_mock"] = workload_mock()
-    db = None                    # the shard phase loads its own table
+    db = None                    # the tpch and shard phases load their own tables
+    if "tpch" in phases:
+        gc.collect()
+        torch.cuda.empty_cache()
+        if bk is None:           # reuse the earlier phases' keys when they ran
+            bk = BFVBackend(paper, seed=SEED)
+        by_path["tpch"] = phase_tpch(bk)
     if "shard" in phases:
         gc.collect()
         torch.cuda.empty_cache()
@@ -2143,7 +2239,7 @@ def main() -> None:
     if "mesh" in phases:
         if q1_stats is None:     # the unsharded Q1's OpStats, when workload did not run
             bk, db, _ = load_paper_lineitem(paper_params())
-            q1_stats = _q1_via_plan(bk, Planner(db, optimized=True))["op_stats"]
+            q1_stats = _via_plan(bk, Planner(db, optimized=True))["op_stats"]
         bk = db = None           # the four ranks hold ~13 GB each
         gc.collect()
         torch.cuda.empty_cache()

@@ -109,9 +109,21 @@ def _is_pow2(x: int) -> bool:
     return x > 0 and x & (x - 1) == 0
 
 
+# Ciphertexts a lane of each circuit holds at once beside the product
+# in flight: pow_ct its base, its accumulator and their product; the
+# slot broadcast of engine/ops.py its extraction, the rotation and the
+# sum; lt_zero its baby steps, giant steps and partial sums (`_lt_held`).
+POW_HELD = 4
+
+
 def pow_ct(ops, x, e: int):
-    """x^e by square-and-multiply (depth ceil(log2 e) for e a power of two)."""
+    """x^e by square-and-multiply (depth ceil(log2 e) for e a power of two).
+    A stacked batch runs in lane chunks (`ops.map_lanes`)."""
     assert e >= 1
+    return ops.map_lanes(lambda z, _: _pow(ops, z, e), x, POW_HELD, "pow")
+
+
+def _pow(ops, x, e: int):
     acc = None
     base = x
     while e:
@@ -139,6 +151,23 @@ def eq_scalar(ops, x, c: int):
     return eq_zero(ops, ops.sub_scalar(x, c))
 
 
+def _baby_count(max_degree: int) -> int:
+    """Paterson-Stockmeyer's baby-step count B: the least power of two
+    with B^2 > max_degree."""
+    b = 1
+    while b * b < max_degree + 1:
+        b *= 2
+    return b
+
+
+def _lt_held(p: int) -> int:
+    """Ciphertexts a lane of lt_zero holds at once: B baby steps, the
+    giant steps and the partial sums of the split (two per level), and
+    the product in flight."""
+    deg = (p - 1) // 2 - 1
+    return _baby_count(deg) + 2 * deg.bit_length() + POW_HELD
+
+
 class _PSEvaluator:
     """Depth-balanced Paterson-Stockmeyer over w-powers of one ciphertext.
 
@@ -151,10 +180,7 @@ class _PSEvaluator:
     def __init__(self, ops, w, max_degree: int):
         self.ops = ops
         self.w = w
-        b = 1
-        while b * b < max_degree + 1:
-            b *= 2
-        self.B = b
+        self.B = b = _baby_count(max_degree)
         self._baby = {1: w}   # w^i
         self._pow2 = {1: w}   # w^(2^j) keyed by 2^j
         for i in range(2, b):
@@ -201,11 +227,17 @@ class _PSEvaluator:
 
 
 def lt_zero(ops, z):
-    """LT(z, 0): encrypted 1 iff z is in the negative half range, else 0."""
+    """LT(z, 0): encrypted 1 iff z is in the negative half range, else 0.
+    A stacked batch runs in lane chunks (`ops.map_lanes`)."""
     if hasattr(ops, "op_log"):
         ops.op_log["cmp"] += 1
     p = ops.t
     assert _is_pow2(p - 1), "sgn decomposition assumes a Fermat prime t"
+    return ops.map_lanes(lambda x, _: _lt(ops, x), z, _lt_held(p), "lt")
+
+
+def _lt(ops, z):
+    p = ops.t
     s = sgn_odd_coeffs(p)                      # h(w): sgn(z) = z * h(z^2)
     w = ops.mul(z, z)
     ps = _PSEvaluator(ops, w, len(s) - 1)

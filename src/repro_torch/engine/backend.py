@@ -108,6 +108,9 @@ class _BackendBase:
         # stack_blocks pads lane counts to the shard count and every
         # charge is mirrored into the context's distribution ledger.
         self.shard_ctx = None
+        # Set while a circuit runs a later lane chunk (BFVBackend.map_lanes):
+        # its launches were charged by the first chunk.
+        self._quiet = False
         from collections import Counter
         self.op_log = Counter()    # operator-level counts (eq/cmp/sum/...)
 
@@ -126,8 +129,16 @@ class _BackendBase:
         return self._nblocks(ct)
 
     def _count(self, *cts) -> int:
-        self.stats.launches += 1
+        if not self._quiet:
+            self.stats.launches += 1
         return max(self._nblocks(c) for c in cts)
+
+    def map_lanes(self, fn, x, held: int, what: str):
+        """`fn(x, lanes)` over a stacked batch `x` entering a circuit that
+        holds about `held` ciphertexts a lane (`lanes` is the slice of
+        `x`'s lanes the call sees).  Here one pass; BFVBackend runs the
+        lanes in chunks when the whole batch would not fit on its device."""
+        return fn(x, slice(None))
 
     def _charge_units(self, field: str, units: int,
                       phys_units: int | None = None,
@@ -265,8 +276,20 @@ class _BackendBase:
 # ---------------------------------------------------------------------------
 
 class BFVBackend(_BackendBase):
-    def __init__(self, params: HEParams, seed: int = 0, device="cuda"):
+    """Real RNS-BFV ciphertexts on `device`.
+
+    A stacked batch entering a circuit (`map_lanes`) runs in chunks of
+    lanes when it would not fit: at most `max_lanes` lanes a pass when
+    given, and on the card at most what half the memory the allocator
+    can still hand out holds.  On the CPU without `max_lanes` a batch
+    runs whole.  `lane_log` records (circuit, lanes, lanes a chunk) of
+    every chunked run."""
+
+    def __init__(self, params: HEParams, seed: int = 0, device="cuda",
+                 max_lanes: int | None = None):
         super().__init__()
+        if max_lanes is not None and max_lanes < 1:
+            raise ValueError(f"max_lanes must be positive, got {max_lanes}")
         self.params = params
         self.t = params.t
         self.slots = params.n
@@ -277,6 +300,75 @@ class BFVBackend(_BackendBase):
         self.model = self.ctx.noise_model
         self.limbs = params.k          # RNS tower height (model-axis extent)
         self._depth: dict[int, int] = {}
+        self.max_lanes = max_lanes
+        self.lane_log: list[tuple[str, int, int]] = []
+        self._in_lanes = False
+
+    # -- lane chunks --------------------------------------------------------
+    def _lane_chunk(self, x: CiphertextBatch, held: int) -> int:
+        """Lanes of `x` one pass may take.  A lane's working set is the
+        circuit's `held` ciphertexts plus one key switch's four (k, k, n)
+        digit tensors, 2k ciphertexts."""
+        lanes = min(x.nphys, self.max_lanes or x.nphys)
+        if x.data.is_cuda:
+            dev = x.data.device
+            free = (torch.cuda.mem_get_info(dev)[0] + torch.cuda.memory_reserved(dev)
+                    - torch.cuda.memory_allocated(dev))
+            per_lane = x.data[0].numel() * x.data.element_size() * (held + 2 * self.params.k)
+            lanes = min(lanes, max(1, free // 2 // per_lane))
+        return lanes
+
+    def map_lanes(self, fn, x, held: int, what: str):
+        """`fn(x, lanes)` lane chunk by lane chunk, the outputs written back
+        into one batch of `x`'s shape.  Every chunk charges its lanes' op
+        units and only the first its launches, so OpStats, noise, depth
+        and the logs equal one pass's.  Runs whole: a single ciphertext, a
+        nested circuit, a shard context (its ledger counts calls) and a
+        noise model other than the context's (a fault injection's counts
+        calls).  A refresh inside a chunk undoes the chunks' charges and
+        runs the batch whole: only a whole batch refreshes and logs as one
+        pass does."""
+        if (not isinstance(x, CiphertextBatch) or x.live is not None or self._in_lanes
+                or self.shard_ctx is not None or self.model is not self.ctx.noise_model):
+            return fn(x, slice(None))
+        n = x.nphys
+        step = self._lane_chunk(x, held)
+        if step >= n:
+            return fn(x, slice(None))
+        snap, nlog = self.stats.clone(), len(self.refresh_log)
+        per = np.asarray(x.noise) if np.ndim(x.noise) else None
+        out, noises, depth = None, [], 0
+        self._in_lanes = True
+        try:
+            for lo in range(0, n, step):
+                lanes = slice(lo, min(lo + step, n))
+                part = CiphertextBatch(x.data[lanes],
+                                       x.noise if per is None else per[lanes], x.params)
+                self._quiet = lo > 0
+                res = fn(self._set_d(part, self._d(x)), lanes)
+                if len(self.refresh_log) > nlog:
+                    break
+                if out is None:
+                    out = torch.empty((n,) + tuple(res.data.shape[1:]),
+                                      dtype=res.data.dtype, device=res.data.device)
+                out[lanes] = res.data
+                noises.append((res.noise, lanes.stop - lanes.start))
+                depth = self._d(res)
+                del res
+        finally:
+            self._in_lanes = self._quiet = False
+        if len(self.refresh_log) > nlog:
+            for f in dataclasses.fields(OpStats):
+                setattr(self.stats, f.name, getattr(snap, f.name))
+            del self.refresh_log[nlog:]
+            return fn(x, slice(None))
+        self.lane_log.append((what, n, step))
+        if all(np.ndim(v) == 0 and v == noises[0][0] for v, _ in noises):
+            noise = noises[0][0]
+        else:
+            noise = np.concatenate([np.broadcast_to(np.asarray(v, dtype=np.float64), (m,))
+                                    for v, m in noises])
+        return self._set_d(CiphertextBatch(out, noise, x.params), depth)
 
     def _limb_mesh(self):
         """The active context's 2-D mesh iff key-switches should

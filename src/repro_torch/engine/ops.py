@@ -450,14 +450,17 @@ def broadcast_slots(bk, packed, idxs) -> list:
     translate launch counts.  Stacking nparent copies of `packed`
     against an (nparent, slots) one-hot basis matrix runs the same ops
     on every lane of one batch: identical per-block op counts, noise
-    and depth, ~nparent x fewer launches."""
+    and depth, ~nparent x fewer launches.  The batch runs in lane chunks
+    (`bk.map_lanes`), each against its rows of the basis."""
     idxs = list(idxs)
     if len(idxs) == 1:
         return [bk.broadcast_slot(packed, int(idxs[0]))]
     basis = np.zeros((len(idxs), bk.slots), dtype=np.int64)
     basis[np.arange(len(idxs)), np.asarray(idxs, dtype=np.int64)] = 1
     batch = bk.stack_blocks([packed] * len(idxs))
-    return bk.unstack_blocks(bk.sum_slots(bk.mul_plain(batch, basis)))
+    out = bk.map_lanes(lambda b, lanes: bk.sum_slots(bk.mul_plain(b, basis[lanes])),
+                       batch, cmp.POW_HELD, "broadcast")
+    return bk.unstack_blocks(out)
 
 
 def _translate_down(bk, packed, fact_blocks: list, nparent: int,

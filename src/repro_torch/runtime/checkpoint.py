@@ -65,14 +65,41 @@ def _rebuild(tree, leaves, prefix=()):
     return leaves["/".join(prefix)]
 
 
+# numpy has no bfloat16: a bfloat16 leaf's host copy is its raw bits as
+# 2-byte void records, written as the JAX package's `np.save` of an
+# ml_dtypes array writes it (header descr '<V2') and named "bfloat16" in
+# the manifest.
+_BF16_BITS = np.dtype("V2")
+
+
 def _host(leaf) -> np.ndarray:
     """A host copy of one leaf, taken now."""
     if isinstance(leaf, torch.Tensor):
-        if leaf.dtype == torch.bfloat16:
-            raise TypeError("bfloat16 tensors have no numpy dtype; a checkpoint "
-                            "of bfloat16 leaves is not supported")
-        return leaf.detach().to("cpu", copy=True).numpy()
+        host = leaf.detach().to("cpu", copy=True)
+        if host.dtype == torch.bfloat16:
+            return host.view(torch.int16).numpy().view(_BF16_BITS)
+        return host.numpy()
     return np.array(leaf)
+
+
+def _save(path: str, arr: np.ndarray) -> str:
+    """Write one leaf; returns the dtype name the manifest records."""
+    if arr.dtype != _BF16_BITS:
+        np.save(path, arr)
+        return str(arr.dtype)
+    arr = np.ascontiguousarray(arr)
+    with open(path, "wb") as f:
+        np.lib.format.write_array_header_1_0(
+            f, {"descr": "<V2", "fortran_order": False, "shape": arr.shape})
+        f.write(arr.tobytes())
+    return "bfloat16"
+
+
+def _leaf_tensor(arr: np.ndarray, dtype: str) -> torch.Tensor:
+    """A loaded leaf as a CPU tensor, bfloat16 when the manifest says so."""
+    if dtype == "bfloat16":
+        return torch.from_numpy(np.ascontiguousarray(arr).view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
 
 
 def _host_tree(tree):
@@ -123,9 +150,9 @@ class CheckpointManager:
                 continue
             for name, arr in _flatten(tree).items():
                 fn = f"{group}__{name.replace('/', '__')}.npy"
-                np.save(os.path.join(tmp, fn), arr)
+                dtype = _save(os.path.join(tmp, fn), arr)
                 manifest["leaves"][f"{group}/{name}"] = {
-                    "file": fn, "shape": list(arr.shape), "dtype": str(arr.dtype),
+                    "file": fn, "shape": list(arr.shape), "dtype": dtype,
                     # exact on-disk size: lets verify_step detect a leaf
                     # truncated *after* the atomic publish (at-rest rot)
                     "bytes": os.path.getsize(os.path.join(tmp, fn))}
@@ -200,7 +227,7 @@ class CheckpointManager:
                         f"step {step}: leaf {group}/{name} unreadable: {e}",
                         stage="restore",
                         detail={"step": step, "leaf": f"{group}/{name}"}) from e
-                leaves[name] = torch.from_numpy(arr).to(device)
+                leaves[name] = _leaf_tensor(arr, info.get("dtype")).to(device)
             return _rebuild(like, leaves)
 
         return rebuild("params", params_like), rebuild("opt", opt_like), manifest["extra"]

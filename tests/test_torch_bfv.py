@@ -10,11 +10,18 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp
 
 from repro.core import bfv as jbfv
+from repro.core import compare as jcompare
 from repro.core.encoder import BatchEncoder as JaxEncoder
 from repro.core.params import make_params as jax_make_params
+from repro.engine import backend as jbackend
+from repro.engine import ops as jops
 from repro_torch.core import bfv as tbfv
+from repro_torch.core import compare as tcompare
 from repro_torch.core.encoder import BatchEncoder
 from repro_torch.core.params import make_params
+from repro_torch.engine import backend as tbackend
+from repro_torch.engine import ops as tops
+from torch_cases import lane_chunk_run
 
 SEED = 5
 KW = dict(n=128, t=257, k=12)
@@ -275,3 +282,25 @@ def test_mesh_paths_wait_for_the_sharded_slice(pair):
         pair.tc.rotate_rows(pair.t1, 1, pair.tk.gks, mesh=object())
     with pytest.raises(TypeError, match="DeviceMesh"):
         pair.tc.kswitch_gathered(pair.t1.data[1], pair.tk.rlk, object())
+
+
+@pytest.fixture(scope="module")
+def jax_lane_batch():
+    return lane_chunk_run(jbackend.BFVBackend(jax_make_params(**KW), seed=0,
+                                              kernel_backend="ref"), jcompare, jops)
+
+
+@pytest.mark.parametrize("max_lanes", [1, 2, 4])
+def test_lane_chunks_match_jax_one_batch(jax_lane_batch, max_lanes):
+    """A 5-lane batch through eq, lt and the slot broadcast on the port's
+    BFVBackend in lane chunks (`max_lanes` a pass) equals the JAX
+    package's one-batch run: decrypts, noise, depth and OpStats, launches
+    included."""
+    tbk = tbackend.BFVBackend(make_params(**KW), seed=0, device="cpu", max_lanes=max_lanes)
+    got, stats = lane_chunk_run(tbk, tcompare, tops)
+    exp, jstats = jax_lane_batch
+    assert stats == jstats
+    assert {what for what, _, step in tbk.lane_log if step == max_lanes} == {"pow", "lt", "broadcast"}
+    for (dec, noise, depth), (jdec, jnoise, jdepth) in zip(got, exp):
+        np.testing.assert_array_equal(dec, jdec)
+        assert noise == jnoise and depth == jdepth

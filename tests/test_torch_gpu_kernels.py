@@ -47,7 +47,7 @@ from repro_torch.kernels.rotate_reduce import ref as rr_ref  # noqa: E402
 from repro_torch.configs.nshedb import CONFIG, smoke  # noqa: E402
 from repro_torch.launch import nshedb_step  # noqa: E402
 from repro_torch.runtime.checkpoint import CheckpointManager  # noqa: E402
-from torch_cases import (bfv_shard_db, bfv_shard_oracle, bfv_shard_plans,  # noqa: E402
+from torch_cases import (bfv_shard_db, bfv_shard_oracle, bfv_shard_plans, lane_chunk_run,  # noqa: E402
                          qkv_arrays, sharded_run, sum_slots_run)
 from torch_mesh_ranks import Ranks  # noqa: E402
 
@@ -236,6 +236,26 @@ def test_cuda_checkpoint_round_trip(cuda_device, tmp_path):
     assert one["ct"].device.type == "cuda" and two["w"][0].device.type == "cuda"
     assert torch.equal(one["ct"] + 1, params["ct"]) and torch.equal(two["ct"], params["ct"])
     assert torch.equal(two["w"][0], params["w"][0])
+
+
+@pytest.mark.gpu
+def test_cuda_lane_chunks_equal_one_batch(cuda_device):
+    """A 5-lane batch through eq / lt / the slot broadcast on the card in
+    lane chunks of 2 (`max_lanes`) equals the one-batch run: decrypts,
+    noise, depth and OpStats, launches included."""
+    from repro_torch.core import compare as tcompare
+    from repro_torch.engine import ops as tops
+    runs = []
+    for max_lanes in (None, 2):
+        bk = tbackend.BFVBackend(make_params(n=128, t=257, k=12), seed=0,
+                                 device=cuda_device, max_lanes=max_lanes)
+        runs.append(lane_chunk_run(bk, tcompare, tops) + (bk.lane_log,))
+    (one, one_stats, one_log), (chunked, stats, log) = runs
+    assert not one_log and {what for what, _, step in log if step == 2} == {"pow", "lt", "broadcast"}
+    assert stats == one_stats
+    for (dec, noise, depth), (dec1, noise1, depth1) in zip(chunked, one):
+        np.testing.assert_array_equal(dec, dec1)
+        assert noise == noise1 and depth == depth1
 
 
 # -------------------------------------------------------------- scan step

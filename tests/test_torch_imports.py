@@ -1,5 +1,6 @@
 """The port stands on torch and numpy alone: no module under
-`src/repro_torch/` nor `chip_smoke.py` imports `jax` or the JAX package."""
+`src/repro_torch/`, nor `chip_smoke.py`, nor an example twin
+(`examples/*_torch.py`) imports `jax` or the JAX package."""
 import ast
 import os
 
@@ -17,6 +18,11 @@ def _sources():
     return sorted(out)
 
 
+def _examples():
+    ex = os.path.join(ROOT, "examples")
+    return sorted(os.path.join(ex, f) for f in os.listdir(ex) if f.endswith("_torch.py"))
+
+
 def _imported_roots(path):
     with open(path) as f:
         tree = ast.parse(f.read(), path)
@@ -31,9 +37,12 @@ def _imported_roots(path):
 
 def test_port_has_sources():
     assert len(_sources()) > 20
+    assert [os.path.basename(p) for p in _examples()] == [
+        "encrypted_analytics_torch.py", "quickstart_torch.py", "train_lm_torch.py"]
 
 
-@pytest.mark.parametrize("path", _sources(), ids=lambda p: os.path.relpath(p, ROOT))
+@pytest.mark.parametrize("path", _sources() + _examples(),
+                         ids=lambda p: os.path.relpath(p, ROOT))
 def test_no_jax_or_reference_package_import(path):
     assert not (_imported_roots(path) & FORBIDDEN), path
 

@@ -132,11 +132,45 @@ def test_checkpoint_async_double_buffer(tmp_path):
     assert torch.equal(two["a"], params["a"])
 
 
+def _bits(t: torch.Tensor) -> np.ndarray:
+    return t.view(torch.int16).numpy()
+
+
 def test_checkpoint_rejects_bfloat16(tmp_path):
+    """bfloat16 leaves, once refused, now round-trip bit for bit (their
+    raw bits on disk, "bfloat16" in the manifest)."""
     mgr = CheckpointManager(str(tmp_path), async_write=False)
-    with pytest.raises(TypeError, match="bfloat16"):
-        mgr.save(1, _tree(torch.bfloat16))
-    assert mgr.all_steps() == []
+    params = _tree(torch.bfloat16)
+    mgr.save(1, params)
+    info = json.load(open(tmp_path / "step_00000001" / "manifest.json"))["leaves"]
+    assert info["params/a"]["dtype"] == "bfloat16" and info["params/a"]["shape"] == [8, 4]
+    assert mgr.verify_step(1)
+    got, _, _ = mgr.restore(1, params, device="cpu")
+    assert got["a"].dtype == torch.bfloat16
+    np.testing.assert_array_equal(_bits(got["a"]), _bits(params["a"]))
+    assert torch.equal(got["b"]["c"], params["b"]["c"])
+
+
+def test_bfloat16_leaf_matches_jax_on_disk(tmp_path):
+    """A bfloat16 leaf the JAX package writes (an ml_dtypes array) restores
+    in the port to the same bits, and the port's file for the same values
+    is byte-equal to it, manifest entry included."""
+    ml_dtypes = pytest.importorskip("ml_dtypes")
+    vals = torch.randn(5, 7, generator=torch.Generator().manual_seed(3)).to(torch.bfloat16)
+    jleaf = jnp.asarray(_bits(vals).view(ml_dtypes.bfloat16))
+    jdir, tdir = tmp_path / "jax", tmp_path / "port"
+    jcheckpoint.CheckpointManager(str(jdir), async_write=False).save(2, {"w": jleaf})
+    CheckpointManager(str(tdir), async_write=False).save(2, {"w": vals})
+    got, _, _ = CheckpointManager(str(jdir), async_write=False).restore(
+        2, {"w": vals}, device="cpu")
+    assert got["w"].dtype == torch.bfloat16
+    np.testing.assert_array_equal(_bits(got["w"]), _bits(vals))
+    step = "step_00000002"
+    assert ((jdir / step / "params__w.npy").read_bytes()
+            == (tdir / step / "params__w.npy").read_bytes())
+    jman = json.load(open(jdir / step / "manifest.json"))
+    tman = json.load(open(tdir / step / "manifest.json"))
+    assert jman == tman and tman["leaves"]["params/w"]["dtype"] == "bfloat16"
 
 
 def test_checkpoint_restore_defaults_to_the_card():

@@ -2,7 +2,9 @@
 package, and its card tests (tests/test_torch_gpu_kernels.py), which run
 where there is no JAX: one copy, so both drive the same sequences.
 
-Imports numpy only; the callers pass the modules they compare.
+Imports numpy only at module level; the callers pass the modules they
+compare, and the helpers that run a whole package's query import it
+inside (`tpch_join_jax` in a child process, `tpch_join_pair`).
 """
 import dataclasses
 
@@ -111,3 +113,122 @@ def sharded_run(mods, db, plan, cell, optimized=True):
     return dict(got=got, stats=dataclasses.asdict(db.bk.stats),
                 report=dataclasses.asdict(ex.report),
                 ledger=pl.shard_ctx.ledger_snapshot() if pl.shard_ctx else None)
+
+
+# The three branches of TPC-H Q19 (brand, first container, size and
+# quantity inside the branch's windows), as engine/queries.py states them.
+Q19_BRANCH_ROWS = (("Brand#12", "SM BAG", 3, 5), ("Brand#23", "MED BAG", 7, 15),
+                   ("Brand#34", "LG BOX", 11, 25))
+
+
+def tpch_join_db(mods, bk, scale):
+    """LINEITEM, ORDERS and PART generated at `scale` by `mods["tpch"]`,
+    loaded through `mods["storage"]` as `tpch.load` loads them.  At small
+    scales the generator's tables answer 0 in every cell of Q12 and Q19,
+    so rows are planted first: lines of a high- and a low-priority order
+    in each of Q12's ship modes, received in 1994 after their commit and
+    committed after shipping; and one part meeting each Q19 branch, with
+    two lines each inside the branch's quantity window, shipped by air,
+    delivered in person."""
+    T = mods["tpch"]
+    day = mods["schema"].date_to_int
+    raw = T.generate(scale)
+    orders, part, li = raw["orders"], raw["part"], raw["lineitem"]
+    orders["o_orderpriority"][0] = "1-URGENT"
+    orders["o_orderpriority"][1] = "5-LOW"
+    for r in range(8):
+        li["l_orderkey"][r] = 1 + r % 2
+        li["l_shipmode"][r] = "MAIL" if r < 4 else "SHIP"
+        li["l_receiptdate"][r] = day("1994-03-01") + r
+        li["l_commitdate"][r] = li["l_receiptdate"][r] - 10
+        li["l_shipdate"][r] = li["l_commitdate"][r] - 10
+    for j, (brand, container, size, qty) in enumerate(Q19_BRANCH_ROWS):
+        part["p_brand"][j], part["p_container"][j], part["p_size"][j] = brand, container, size
+        for r in (8 + 2 * j, 9 + 2 * j):
+            li["l_partkey"][r] = j + 1
+            li["l_quantity"][r] = qty
+            li["l_shipmode"][r] = "AIR"
+            li["l_shipinstruct"][r] = "DELIVER IN PERSON"
+    db = mods["storage"].Database(bk)
+    schemas = T.schemas()
+    for name, data in raw.items():
+        if name in ("lineitem", "orders", "part"):
+            db.load_table(schemas[name], data, len(next(iter(data.values()))))
+    return db
+
+
+def tpch_join_run(mods, bk, qn, scale):
+    """TPC-H `qn` over `tpch_join_db(mods, bk, scale)` through the compiled
+    DAG (`Executor(Planner(db)).run`, what `run_via_plan` calls; static
+    verification on): the database, the result, the oracle's answer, and
+    OpStats, op_log, refresh_log, the ExecReport and the verifier's
+    findings as plain values."""
+    db = tpch_join_db(mods, bk, scale)
+    plan_fn, _, oracle_fn = mods["queries"].QUERIES[qn]
+    bk.stats.reset()
+    ex = mods["executor"].Executor(mods["planner"].Planner(db, optimized=True))
+    got = ex.run(plan_fn())
+    return dict(db=db, got=got, oracle=oracle_fn(db),
+                stats=dataclasses.asdict(bk.stats), op_log=dict(bk.op_log),
+                refresh_log=list(bk.refresh_log), report=dataclasses.asdict(ex.report),
+                findings=[(f.severity, f.code, f.where)
+                          for f in ex._verify_report.findings])
+
+
+def lane_chunk_run(bk, cmp, ops):
+    """A 5-lane batch through `cmp.eq_zero`, `cmp.lt_zero` and
+    `ops.broadcast_slots` (either package's core.compare and engine.ops)
+    on `bk`, a BFVBackend at t=257: each result's decrypts, noise and
+    depth, then OpStats as a dict."""
+    rng = np.random.default_rng(1)
+    batch = bk.stack_blocks([bk.encrypt(rng.integers(0, bk.t, bk.slots)) for _ in range(5)])
+    bk.stats.reset()
+    eq = cmp.eq_zero(bk, batch)
+    lt = cmp.lt_zero(bk, batch)
+    bcast = bk.stack_blocks(ops.broadcast_slots(bk, bk.encrypt(np.arange(bk.slots) % 7), range(5)))
+    return ([(np.asarray(bk.decrypt(c)), np.asarray(c.noise).tolist(), bk.depth(c))
+             for c in (eq, lt, bcast)], dataclasses.asdict(bk.stats))
+
+
+def tpch_join_jax(qn, parents, params):
+    """`tpch_join_run` of the JAX package (plain limb path) at
+    `make_params(**params)`, seed 0, over `Scale.tiny()` with `parents`
+    replaced, without its database: what a child process hands back."""
+    from repro.core.params import make_params
+    from repro.engine import backend, executor, planner, queries, schema, storage, tpch
+    mods = dict(executor=executor, planner=planner, queries=queries, schema=schema,
+                storage=storage, tpch=tpch)
+    bk = backend.BFVBackend(make_params(**params), seed=0, kernel_backend="ref")
+    out = tpch_join_run(mods, bk, qn, dataclasses.replace(tpch.Scale.tiny(), **parents))
+    del out["db"]
+    return out
+
+
+def tpch_join_pair(qn, parents, params, max_lanes):
+    """(port, JAX) runs of `tpch_join_run` for `qn` on the same tables at
+    `make_params(**params)`, seed 0: the port's on the CPU with
+    `max_lanes` (its lane log added), on one torch thread; the JAX
+    package's in a spawned child process at the same time."""
+    import concurrent.futures
+    import multiprocessing
+
+    import torch
+
+    from repro_torch.core.params import make_params
+    from repro_torch.engine import backend, executor, planner, queries, schema, storage, tpch
+    mods = dict(executor=executor, planner=planner, queries=queries, schema=schema,
+                storage=storage, tpch=tpch)
+    ctx = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(1, mp_context=ctx) as pool:
+        jax = pool.submit(tpch_join_jax, qn, parents, params)
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)     # tiny CPU tensor ops: other threads only spin
+        try:
+            bk = backend.BFVBackend(make_params(**params), seed=0, device="cpu",
+                                    max_lanes=max_lanes)
+            port = tpch_join_run(mods, bk, qn,
+                                 dataclasses.replace(tpch.Scale.tiny(), **parents))
+            port["lane_log"] = list(bk.lane_log)
+        finally:
+            torch.set_num_threads(threads)
+        return port, jax.result(timeout=1800)
