@@ -326,8 +326,8 @@ class BFVBackend(_BackendBase):
         nested circuit, a shard context (its ledger counts calls) and a
         noise model other than the context's (a fault injection's counts
         calls).  A refresh inside a chunk undoes the chunks' charges and
-        runs the batch whole: only a whole batch refreshes and logs as one
-        pass does."""
+        the generator's draws and runs the batch whole: only a whole batch
+        refreshes, logs and re-encrypts as one pass does."""
         if (not isinstance(x, CiphertextBatch) or x.live is not None or self._in_lanes
                 or self.shard_ctx is not None or self.model is not self.ctx.noise_model):
             return fn(x, slice(None))
@@ -336,6 +336,7 @@ class BFVBackend(_BackendBase):
         if step >= n:
             return fn(x, slice(None))
         snap, nlog = self.stats.clone(), len(self.refresh_log)
+        draws = self.ctx.rng.bit_generator.state
         per = np.asarray(x.noise) if np.ndim(x.noise) else None
         out, noises, depth = None, [], 0
         self._in_lanes = True
@@ -361,6 +362,7 @@ class BFVBackend(_BackendBase):
             for f in dataclasses.fields(OpStats):
                 setattr(self.stats, f.name, getattr(snap, f.name))
             del self.refresh_log[nlog:]
+            self.ctx.rng.bit_generator.state = draws
             return fn(x, slice(None))
         self.lane_log.append((what, n, step))
         if all(np.ndim(v) == 0 and v == noises[0][0] for v, _ in noises):

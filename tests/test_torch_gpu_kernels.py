@@ -16,7 +16,8 @@ card equal the unsharded run on the card, and checkpoints of CUDA
 tensors restore onto the card byte for byte.  The encrypted-scan step
 (`launch/nshedb_step.py`) on the card equals a plain int64 contraction
 and its CPU run; a 2-rank gloo mesh with CUDA tensors folds and
-key-switches BFV micro ciphertexts as one device does.  The CPU tests of the same
+key-switches BFV micro ciphertexts as one device does; TPC-H Q14's
+legacy body on the card equals its CPU run and the oracle.  The CPU tests of the same
 modules hold the plain versions against the JAX package.
 """
 import os
@@ -47,8 +48,9 @@ from repro_torch.kernels.rotate_reduce import ref as rr_ref  # noqa: E402
 from repro_torch.configs.nshedb import CONFIG, smoke  # noqa: E402
 from repro_torch.launch import nshedb_step  # noqa: E402
 from repro_torch.runtime.checkpoint import CheckpointManager  # noqa: E402
-from torch_cases import (bfv_shard_db, bfv_shard_oracle, bfv_shard_plans, lane_chunk_run,  # noqa: E402
-                         qkv_arrays, sharded_run, sum_slots_run)
+from torch_cases import (bfv_shard_db, bfv_shard_oracle, bfv_shard_plans, engine_mods,  # noqa: E402
+                         lane_chunk_run, legacy_query_run, qkv_arrays, sharded_run,
+                         sum_slots_run)
 from torch_mesh_ranks import Ranks  # noqa: E402
 
 T = 65537
@@ -256,6 +258,28 @@ def test_cuda_lane_chunks_equal_one_batch(cuda_device):
     for (dec, noise, depth), (dec1, noise1, depth1) in zip(chunked, one):
         np.testing.assert_array_equal(dec, dec1)
         assert noise == noise1 and depth == depth1
+
+
+@pytest.mark.gpu
+def test_cuda_legacy_q14_equals_cpu_and_oracle(cuda_device):
+    """TPC-H Q14's legacy body (`run_q14`: a part -> lineitem join hop, a
+    date window, two masked sums) on real BFV ciphertexts at micro
+    parameters, over the planted tables of the CPU tests: on the card its
+    decrypts, OpStats (launches included) and refresh log equal the CPU
+    run's, and the decrypts equal the oracle."""
+    mods = engine_mods("repro_torch")
+    runs, launches = {}, {}
+    for dev in ("cuda", "cpu"):
+        bk = tbackend.BFVBackend(make_params(n=256, t=T, k=30), seed=0, device=dev)
+        kernels.reset_launch_counts()
+        runs[dev] = legacy_query_run(mods, bk, "Q14")
+        launches[dev] = kernels.launch_counts()
+    card, cpu = runs["cuda"], runs["cpu"]
+    assert all(launches["cuda"][k] > 0
+               for k in ("ntt_fwd", "ntt_inv", "mul_mod", "add_mod", "sub_mod"))
+    assert card["got"] == cpu["got"] == card["oracle"] and any(card["oracle"].values())
+    assert card["stats"] == cpu["stats"] and card["refresh_log"] == cpu["refresh_log"]
+    assert card["op_log"] == cpu["op_log"]
 
 
 # -------------------------------------------------------------- scan step
