@@ -57,8 +57,8 @@ full width and depth, and its training path at starcoder2-3b's:
   scan      the paper's encrypted-scan step (`launch/nshedb_step.query_step`)
             at `configs/nshedb.CONFIG` (n = 32768, k = 32, t = 65537) on
             64 blocks (2.1 M rows) for the scan_2m, scan_33m_pagg and
-            scan_33m_rs cells (the last is scan_2m's arithmetic under
-            another ks_mode name, and must equal it), every product and
+            scan_33m_rs cells (the last is scan_2m's arithmetic on one
+            device under the other ks_mode, and must equal it), every product and
             sum on the mul_mod / add_mod kernels; one block's key switch,
             square, multiply and rotation held exactly against plain
             versions;
@@ -68,8 +68,14 @@ full width and depth, and its training path at starcoder2-3b's:
             one block is one lane, so in Q1 the "data" axis only
             replicates); then in the same ranks, at the same parameters,
             a 4-lane key switch split 2 lanes a "data" rank and a 4-lane
-            fold summed over "data", both against one device; then one
-            rank under NCCL;
+            fold summed over "data", both against one device; then the
+            scan step on the mesh (`nshedb_step.query_step_sharded`) at
+            `CONFIG` on 16 blocks, 8 a "data" rank and 16 limbs a "model"
+            rank, each rank holding only its shard, in both key-switch
+            modes: every rank's aggregate equal to the one-device
+            `query_step` on the card, its collective bytes equal to the
+            dry-run's count (`launch/dryrun.measure_step`) and its peak
+            beside the dry-run's; then one rank under NCCL;
   train     (a) the attention gradient (flash_attn forward, torch-op
             backward) against autograd through the plain version on the
             card, float32, four cases up to S = 4500; (b) starcoder2-3b at
@@ -137,7 +143,8 @@ PATH_KERNELS = {"main": BFV_KERNELS, "workload_q1_bfv": BFV_KERNELS, "tpch": BFV
                 "legacy": BFV_KERNELS, "workload_mock": ("rotate_reduce",),
                 "shard_q1_bfv": BFV_KERNELS,
                 "shard_chaos_mock": ("rotate_reduce",), "serve": ("flash_attn",),
-                "scan": ("mul_mod", "add_mod"), "mesh": BFV_KERNELS, "train": ("flash_attn",)}
+                "scan": ("mul_mod", "add_mod"), "mesh": BFV_KERNELS,
+                "mesh_scan": ("mul_mod", "add_mod"), "train": ("flash_attn",)}
 # flash_attn against its plain version: the kernel and the dense version
 # sum in different orders (float32), and bfloat16 outputs round at 2^-8
 FLASH_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
@@ -1826,9 +1833,10 @@ def phase_serve(profile: bool = False) -> dict:
 # cells take 1024 blocks; they run at the same 64 to keep this smoke run
 # short (1024 blocks are 16 times the device work and a 32 GiB numpy draw
 # on the host a cell).  Whether one card holds 1024 blocks was not tried.
-# scan_33m_rs differs from scan_2m only in ks_mode, which names a mesh
-# placement: on one device it is the same arithmetic, so its run repeats
-# scan_2m's and its output must equal scan_2m's bit for bit.
+# scan_33m_rs differs from scan_2m only in ks_mode, which changes what
+# crosses a mesh (the mesh phase runs both modes on one): on one device it
+# is the same arithmetic, so its run repeats scan_2m's and its output must
+# equal scan_2m's bit for bit.
 SCAN_CELLS = ("scan_2m", "scan_33m_pagg", "scan_33m_rs")
 SCAN_BLOCKS = 64
 
@@ -2056,6 +2064,106 @@ def _mesh_data_axis(bk, mesh) -> dict:
             "sharded_fold_4_lanes_equal": fold_equal, "failures": bad}
 
 
+# the scan step on the same ranks: CONFIG at full width on 16 blocks
+# (scan_2m's 64 cut for time), 8 a "data" rank, all of them in one pass
+MESH_SCAN_BLOCKS = 16
+MESH_SCAN_CHUNK = 8
+MESH_SCAN_EXPECT = os.path.join(MESH_DIR, "scan_expected.pt")
+SCAN_KEYS = ("rlk_b", "rlk_a", "gk_b", "gk_a")
+
+
+def _mesh_scan_inputs(cfg, q) -> dict:
+    """The step's whole inputs on the host, drawn from the seed: every
+    rank and the one-device run draw the same."""
+    rng = np.random.default_rng(SEED + 4)
+    draw = lambda *lead: torch.from_numpy(rng.integers(0, q[:, None], lead + (cfg.k, cfg.n)))
+    out = {"cts_col": draw(MESH_SCAN_BLOCKS, 2), "cts_val": draw(MESH_SCAN_BLOCKS, 2)}
+    out.update((key, draw(cfg.k)) for key in SCAN_KEYS)
+    return out
+
+
+def _mesh_scan_expected() -> dict:
+    """Before the ranks start: `query_step` on one device (the card) over
+    the 16 blocks, saved for the ranks to compare with, and the dry-run's
+    count for one rank's shard on the 2 x 2 mesh in both modes."""
+    from repro_torch.configs.nshedb import CONFIG
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import nshedb_step as S
+
+    cfg = CONFIG
+    consts = S.make_constants(cfg, device="cuda")
+    full = {key: t.cuda() for key, t in _mesh_scan_inputs(cfg, consts["q"].cpu().numpy()).items()}
+    chunk = S.default_chunk(full["cts_col"], cfg.k)
+    t0 = clock()
+    out = S.query_step(full["cts_col"], full["cts_val"], *(full[k] for k in SCAN_KEYS),
+                       consts["tabs"], consts["perm"], eq_levels=cfg.eq_levels,
+                       rot_steps=cfg.rot_steps, chunk=chunk)
+    secs = clock() - t0
+    torch.save(out.cpu(), MESH_SCAN_EXPECT)
+    del full, out, consts
+    gc.collect()
+    torch.cuda.empty_cache()
+    pred = {}
+    for mode in S.KS_MODES:
+        got = dryrun.measure_step(cfg, MESH_GRID, ("data", "model"), MESH_SCAN_BLOCKS,
+                                  ks_mode=mode, chunk=MESH_SCAN_CHUNK)
+        pred[mode] = dict(got, peak_bytes=got["argument_bytes"] + got["temp_bytes"])
+    return {"one_device_s": secs, "one_device_chunk": chunk, "dryrun": pred}
+
+
+def _mesh_scan() -> dict:
+    """One rank's part of the scan step on a 2 x 2 ("data", "model")
+    mesh at CONFIG: its shard of the 16 blocks (8 blocks, 16 limbs) and
+    of the keys, placed for each mode, on the card; seconds (from a
+    barrier, synchronized), peak allocated bytes, launches, the
+    collective record of the step, and whether the aggregate gathered
+    along "model" equals the one-device run's."""
+    import torch.distributed as dist
+    from repro_torch import kernels
+    from repro_torch.configs.nshedb import CONFIG
+    from repro_torch.core import collectives as C
+    from repro_torch.launch import nshedb_step as S
+    from repro_torch.launch.mesh import make_query_mesh
+
+    cfg = CONFIG
+    mesh = make_query_mesh(*MESH_GRID, device="cuda")
+    consts = S.make_constants(cfg, device="cuda")
+    full = _mesh_scan_inputs(cfg, consts["q"].cpu().numpy())
+    expect = torch.load(MESH_SCAN_EXPECT).cuda()
+    runs, launches, bad = {}, {}, []
+    for mode in S.KS_MODES:
+        local = {key: t.cuda() for key, t in S.shard_inputs(full, mesh, mode).items()}
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        dist.barrier()
+        C.reset_collective_record()
+        kernels.reset_launch_counts()
+        t0 = clock()
+        agg = S.query_step_sharded(local["cts_col"], local["cts_val"],
+                                   *(local[k] for k in SCAN_KEYS), consts["tabs"],
+                                   consts["perm"], mesh, eq_levels=cfg.eq_levels,
+                                   rot_steps=cfg.rot_steps, ks_mode=mode, chunk=MESH_SCAN_CHUNK)
+        secs = clock() - t0
+        counts = {k: v for k, v in kernels.launch_counts().items() if v}
+        record = C.collective_record()
+        peak = torch.cuda.max_memory_allocated()
+        equal = torch.equal(C.gather_axis(agg, mesh, "model", dim=1), expect)
+        for name, n_ in counts.items():
+            launches[name] = launches.get(name, 0) + n_
+        runs[mode] = {"step_s": secs, "peak_device_bytes": peak, "collective_bytes": record,
+                      "blocks": local["cts_col"].shape[0], "limbs": local["cts_col"].shape[-2],
+                      "chunk": MESH_SCAN_CHUNK, "kernel_launches": counts,
+                      "equal_to_one_device": equal}
+        if not equal:
+            bad.append(f"scan step ({mode}): aggregate != one-device query_step")
+        del local, agg
+    idle = [k for k in ("mul_mod", "add_mod") if launches.get(k, 0) <= 0]
+    if idle:
+        bad.append(f"scan step launched no {idle} kernel")
+    return {"runs": runs, "kernel_launches": launches, "failures": bad}
+
+
 def _mesh_nccl() -> dict:
     """One rank under NCCL (a 1 x 1 mesh): `kswitch_gathered` of a 5-lane
     batch and `sharded_fold` at `paper_params()` against the one-device
@@ -2092,7 +2200,14 @@ def _mesh_rank(rank: int, world: int, backend: str, expect_stats) -> None:
         dist.init_process_group(backend, init_method=f"file://{MESH_DIR}/{backend}.rendezvous",
                                 rank=rank, world_size=world,
                                 timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
-        rec = _mesh_q1(expect_stats) if backend == "gloo" else _mesh_nccl()
+        if backend == "gloo":
+            rec = _mesh_q1(expect_stats)
+            gc.collect()
+            torch.cuda.empty_cache()
+            rec["scan_step"] = _mesh_scan()
+            rec["failures"] += rec["scan_step"].pop("failures")
+        else:
+            rec = _mesh_nccl()
         with open(path + ".json", "w") as f:
             json.dump(rec, f)
     except BaseException:
@@ -2138,33 +2253,62 @@ def _run_ranks(world: int, backend: str, expect_stats=None) -> list:
     return recs
 
 
-def phase_mesh(expect_stats) -> dict:
+def _summed(counts) -> dict:
+    out = {}
+    for rec in counts:
+        for name, n_ in rec.items():
+            out[name] = out.get(name, 0) + n_
+    return out
+
+
+def phase_mesh(expect_stats) -> tuple[dict, dict]:
     """Four ranks sharing the card over gloo on a 2 x 2 ("data", "model")
     mesh, each running Q1 on real ciphertexts (every rank equal to the
-    oracle, OpStats equal to the unsharded run's) and then the "data"
-    axis' key switch and fold against one device; then one rank under
-    NCCL.  Returns the launch counts of the four ranks' queries, summed
-    (the checks after Q1 are not counted)."""
+    oracle, OpStats equal to the unsharded run's), then the "data" axis'
+    key switch and fold against one device, then the scan step on the
+    mesh against one device and the dry-run; then one rank under NCCL.
+    Returns the launch counts of the four ranks' queries and of their
+    scan steps, each summed over the ranks (the checks after Q1 and the
+    one-device scan are not counted)."""
     shutil.rmtree(MESH_DIR, ignore_errors=True)
     os.makedirs(MESH_DIR)
+    t0 = time.perf_counter()
+    scan_expect = _mesh_scan_expected()
+    expect_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     world = MESH_GRID[0] * MESH_GRID[1]
     recs = _run_ranks(world, "gloo", expect_stats)
     gloo_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     nccl = _run_ranks(1, "nccl")[0]
-    launches = {}
-    for rec in recs:
-        for name, n_ in rec["kernel_launches"].items():
-            launches[name] = launches.get(name, 0) + n_
+    scans = [rec.pop("scan_step") for rec in recs]
+    pred = scan_expect["dryrun"]
+    beside = {mode: {"dryrun": {k: pred[mode][k] for k in (
+                         "collective_bytes", "peak_bytes", "argument_bytes", "temp_bytes",
+                         "flops", "hlo_bytes", "chunk")},
+                     "ranks": [{k: scan["runs"][mode][k] for k in (
+                         "step_s", "peak_device_bytes", "collective_bytes")} for scan in scans]}
+              for mode in pred}
     emit("mesh", {"grid": list(MESH_GRID), "backend": "gloo", "tensors": "cuda",
-                  "phase_s": round(gloo_s, 3), "ranks": recs,
+                  "phase_s": round(expect_s + gloo_s, 3), "ranks": recs,
+                  "scan_step": {"blocks": MESH_SCAN_BLOCKS, "chunk": MESH_SCAN_CHUNK,
+                                "one_device_s": scan_expect["one_device_s"],
+                                "one_device_chunk": scan_expect["one_device_chunk"],
+                                "one_device_and_dryrun_s": round(expect_s, 3),
+                                "by_mode": beside, "ranks": scans},
                   "nccl_1x1": nccl, "nccl_s": round(time.perf_counter() - t0, 3),
-                  "kernel_launches": launches})
+                  "kernel_launches": _summed(rec["kernel_launches"] for rec in recs),
+                  "scan_kernel_launches": _summed(scan["kernel_launches"] for scan in scans)})
     if not (nccl["kswitch_gathered_equal"] and nccl["sharded_fold_equal"]):
         raise AssertionError(f"mesh phase: NCCL 1 x 1 run disagrees: {nccl}")
+    off = [(mode, r) for mode, rec in beside.items() for r, got in enumerate(rec["ranks"])
+           if got["collective_bytes"] != rec["dryrun"]["collective_bytes"]]
+    if off:
+        raise AssertionError(f"mesh phase: scan step collective bytes differ from the "
+                             f"dry-run's in (mode, rank) {off}")
     shutil.rmtree(MESH_DIR, ignore_errors=True)
-    return launches
+    return (_summed(rec["kernel_launches"] for rec in recs),
+            _summed(scan["kernel_launches"] for scan in scans))
 
 
 # ------------------------------------------------------------------- train
@@ -2596,7 +2740,7 @@ def main() -> None:
         bk = db = None           # the four ranks hold ~13 GB each
         gc.collect()
         torch.cuda.empty_cache()
-        by_path["mesh"] = phase_mesh(q1_stats)
+        by_path["mesh"], by_path["mesh_scan"] = phase_mesh(q1_stats)
         mark("mesh")
     if "train" in phases:
         bk = db = None

@@ -14,12 +14,18 @@ from .modops import add_mod_cuda, mul_mod_cuda, sub_mod_cuda
 from .ref import add_mod_ref, mul_mod_ref, sub_mod_ref
 
 
-def _pointwise(a, b, tabs, kern_fn, ref_fn):
+def _result_shape(a, b, tabs):
     shape = torch.broadcast_shapes(a.shape, b.shape)
     if shape[-2:] != (tabs.k, tabs.n):
         raise ValueError(f"expected (..., {tabs.k}, {tabs.n}), got {tuple(shape)}")
-    if not (a.is_cuda or b.is_cuda):
-        return ref_fn(a, b, tabs.q)
+    return shape
+
+
+def kernel_operands(a, b, tabs):
+    """(result shape, a, b) as the kernel reads them: (rows, n) views,
+    `a` copied out to the result's shape, `b` as it is when its shape is
+    a trailing part of the result's, else copied out too."""
+    shape = _result_shape(a, b, tabs)
     a = a.expand(shape).contiguous().view(-1, tabs.n)
     core = tuple(b.shape)
     while len(core) > 2 and core[0] == 1:
@@ -28,6 +34,14 @@ def _pointwise(a, b, tabs, kern_fn, ref_fn):
         b = b.contiguous().view(-1, tabs.n)       # trailing part: no copy
     else:
         b = b.expand(shape).contiguous().view(-1, tabs.n)
+    return shape, a, b
+
+
+def _pointwise(a, b, tabs, kern_fn, ref_fn):
+    if not (a.is_cuda or b.is_cuda):
+        _result_shape(a, b, tabs)
+        return ref_fn(a, b, tabs.q)
+    shape, a, b = kernel_operands(a, b, tabs)
     return kern_fn(a, b, tabs).view(shape)
 
 

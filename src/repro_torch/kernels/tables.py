@@ -75,3 +75,12 @@ def limb_tables(tables: NttTables, device) -> LimbTables:
         ninv_shoup=_bits32((ninv << sh) // q64, device),
         mu64=torch.from_numpy(mu.view(np.int64)).to(device),
     )
+
+
+def slice_limbs(tabs: LimbTables, lo: int, hi: int) -> LimbTables:
+    """The tables of limbs [lo, hi) of `tabs`: views of its tensors."""
+    if not 0 <= lo < hi <= tabs.k:
+        raise ValueError(f"limb slice [{lo}, {hi}) outside a base of {tabs.k} limbs")
+    return dataclasses.replace(tabs, k=hi - lo, **{
+        f.name: getattr(tabs, f.name)[lo:hi] for f in dataclasses.fields(tabs)
+        if isinstance(getattr(tabs, f.name), torch.Tensor)})

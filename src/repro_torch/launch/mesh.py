@@ -73,3 +73,10 @@ def make_query_mesh(data: int, model: int, device=None):
     (engine/sharded.py, core/bfv.py: kswitch_gathered)."""
     return _device_mesh((data, model), ("data", "model"), device)
 
+
+def make_step_mesh(pod: int, data: int, model: int, device=None):
+    """3-D ("pod", "data", "model") mesh for the scan step
+    (launch/nshedb_step.query_step_sharded): blocks over "pod" and
+    "data", limbs over "model" — the multi-pod production mesh's axes at
+    any size."""
+    return _device_mesh((pod, data, model), ("pod", "data", "model"), device)

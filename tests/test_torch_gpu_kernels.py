@@ -16,7 +16,8 @@ card equal the unsharded run on the card, and checkpoints of CUDA
 tensors restore onto the card byte for byte.  The encrypted-scan step
 (`launch/nshedb_step.py`) on the card equals a plain int64 contraction
 and its CPU run; a 2-rank gloo mesh with CUDA tensors folds and
-key-switches BFV micro ciphertexts as one device does; TPC-H Q14's
+key-switches BFV micro ciphertexts as one device does, and runs the
+scan step sharded over it as one device does; TPC-H Q14's
 legacy body on the card equals its CPU run and the oracle.  The CPU tests of the same
 modules hold the plain versions against the JAX package.
 """
@@ -51,7 +52,7 @@ from repro_torch.runtime.checkpoint import CheckpointManager  # noqa: E402
 from torch_cases import (bfv_shard_db, bfv_shard_oracle, bfv_shard_plans, engine_mods,  # noqa: E402
                          lane_chunk_run, legacy_query_run, qkv_arrays, sharded_run,
                          sum_slots_run)
-from torch_mesh_ranks import Ranks  # noqa: E402
+from torch_mesh_ranks import Ranks, scan_inputs  # noqa: E402
 
 T = 65537
 FLASH_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
@@ -335,6 +336,27 @@ def test_cuda_gloo_mesh_folds_and_key_switches(cuda_device, tmp_path):
         assert got["mesh"] == {"device_type": "cuda", "axes": ("data",), "shape": (2,)}
         np.testing.assert_array_equal(got["got"], got["base"])
         np.testing.assert_array_equal(got["got"], np.sum(got["vecs"], axis=0) % got["t"])
+
+
+@pytest.mark.gpu
+def test_cuda_gloo_scan_step_on_a_mesh(cuda_device, tmp_path):
+    """Two gloo ranks holding CUDA tensors run `query_step_sharded` at
+    smoke() on 4 blocks, each holding only its shard, on the ("data",) 2
+    and the (1, 2) ("data", "model") mesh in both key-switch modes: every
+    rank's aggregate, gathered along "model", equals the one-device step
+    on the CPU."""
+    cfg = smoke()
+    consts = nshedb_step.make_constants(cfg, device="cpu")
+    full = {key: torch.from_numpy(a)
+            for key, a in scan_inputs(consts["q"].numpy(), cfg.k, cfg.n).items()}
+    exp = nshedb_step.query_step(
+        full["cts_col"], full["cts_val"], *(full[k] for k in ("rlk_b", "rlk_a", "gk_b", "gk_a")),
+        consts["tabs"], consts["perm"], eq_levels=cfg.eq_levels, rot_steps=cfg.rot_steps).numpy()
+    for got in Ranks(2, ["scan_step"], tmp_path, device="cuda").results()["scan_step"]:
+        runs = [run for key, run in got.items() if key[2] != "keyswitch"]
+        assert {key[0] for key in got} == {"data2", "1x2"} and len(runs) == 8
+        for run in runs:
+            assert np.array_equal(run["agg"], exp)
 
 
 # -------------------------------------------------------------- flash_attn

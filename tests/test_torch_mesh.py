@@ -216,9 +216,15 @@ def test_mesh_factories_raise(ranks):
         assert "needs 256 ranks but only 4" in res["raised"]["production"]
 
 
-def test_dryrun_record_scan_2m():
-    """Bytes per device of scan_2m on a 16 x 16 mesh, from shapes alone:
-    64 blocks over 16 data ranks, 32 limbs over 16 model ranks."""
+def test_dryrun_record_scan_2m(tmp_path):
+    """scan_2m on a 16 x 16 mesh, one device's share with no process
+    group: 64 blocks over 16 data ranks (4 a device), 32 limbs over 16
+    model ranks.  Bytes held from shapes; the step run on meta tensors
+    for flops, bytes moved, temporaries and the collectives: 32 key
+    switches a block, each all-gathering the 4 blocks' digits (4 x 32 x
+    32768 int64), and one all-reduce of the (2, 2, 32768) aggregate a
+    block axis (two on the multi-pod mesh: "pod", then "data")."""
+    import json
     import torch.distributed as dist
     rec = dryrun.run_cell("nshedb", "scan_2m", "single")
     assert not dist.is_initialized()
@@ -232,8 +238,34 @@ def test_dryrun_record_scan_2m():
                   "flops", "hlo_bytes", "argument_bytes", "output_bytes", "temp_bytes",
                   "peak_bytes", "collective_bytes", "collective_total", "wall_s"}
     assert ref_fields <= set(rec)
-    assert {f for f in ref_fields if rec[f] is None} == set(rec["null_reasons"])
+    assert {f for f in ref_fields if rec[f] is None} == set(rec["null_reasons"]) == {
+        "lower_s", "compile_s"}
+    gather = 32 * 4 * k * n * 8
+    assert gather == 1_073_741_824
+    assert rec["collective_bytes"] == {"all-gather": gather, "all-reduce": 1_048_576,
+                                       "reduce-scatter": 0, "all-to-all": 0,
+                                       "collective-permute": 0}
+    assert rec["collective_total"] == gather + 1_048_576
+    assert rec["ks_mode"] == "all_gather" and rec["key_placement"] == [None, "model", None]
+    for field in ("flops", "hlo_bytes", "temp_bytes", "peak_bytes"):
+        assert rec[field] > 0
+    assert rec["peak_bytes"] == rec["argument_bytes"] + rec["temp_bytes"] >= rec["argument_bytes"]
     multi = dryrun.run_cell("nshedb", "scan_2m", "multi")
     assert multi["argument_bytes"] == 2 * (ct // 2) + 4 * key + 2 * k * 8 + n * 8
+    assert multi["collective_bytes"]["all-gather"] == gather // 2
+    assert multi["collective_bytes"]["all-reduce"] == 2 * 1_048_576
+    assert not dist.is_initialized()
     lm = dryrun.run_cell("gemma2-27b", "train_4k", "single")
     assert lm["status"] == "skip" and "training slice" in lm["reason"]
+    # one record file a cell; --skip-existing keeps a file that says ok
+    argv = ["--arch", "nshedb", "--shape", "scan_2m", "--out", str(tmp_path)]
+    (first,) = dryrun.main(argv)
+    path = tmp_path / "nshedb__scan_2m__single.json"
+    assert json.loads(path.read_text()) == first
+    path.write_text(json.dumps(dict(first, wall_s=-1.0)))
+    assert dryrun.main(argv + ["--skip-existing"]) == []
+    assert json.loads(path.read_text())["wall_s"] == -1.0
+    path.write_text(json.dumps(dict(first, status="fail")))
+    (again,) = dryrun.main(argv + ["--skip-existing"])
+    assert again["status"] == "ok" and json.loads(path.read_text())["status"] == "ok"
+    assert not dist.is_initialized()

@@ -1,12 +1,14 @@
 """Rank processes for the port's mesh tests: `Ranks` starts `world`
 processes that join one `gloo` process group (a `file://` rendezvous in
 a directory of the caller's, so concurrent test workers never collide),
-run named cases on replicated state and hand their results back.
+run named cases and hand their results back.  The query engine's cases
+run on replicated state; the scan step's (`case_scan_step`) holds only
+each rank's shard.
 
 Imports numpy and torch at the top and the port inside the ranks (no
 JAX), so the card's tests (tests/test_torch_gpu_kernels.py) use it too;
-the CPU tests (tests/test_torch_mesh.py) hold the results against the
-JAX package in the parent process.  Every rank runs with one intra-op
+the CPU tests (tests/test_torch_mesh.py, tests/test_torch_scan_mesh.py)
+hold the results against the JAX package in the parent process.  Every rank runs with one intra-op
 thread; every rendezvous, collective and join has a timeout, and a rank
 that fails or hangs fails the whole call.
 """
@@ -168,6 +170,74 @@ def case_compressed_psum(device):
     return {"g": g, "out": out.cpu().numpy()}
 
 
+SCAN_BLOCKS = 4
+SCAN_SEED = 3
+
+
+def scan_inputs(q, k: int, n: int, nblocks: int = SCAN_BLOCKS, seed: int = SCAN_SEED) -> dict:
+    """The scan step's whole inputs (`nshedb_step.input_specs`' keys but
+    q, mu and perm) as int64 residues mod each limb's prime `q`, drawn
+    in the order tests/test_torch_nshedb_step.py draws them."""
+    rng = np.random.default_rng(seed)
+    q = np.asarray(q, dtype=np.int64)[:, None]
+    draw = lambda *lead: rng.integers(0, q, lead + (k, n)).astype(np.int64)
+    out = {"cts_col": draw(nblocks, 2), "cts_val": draw(nblocks, 2)}
+    out.update(zip(("rlk_b", "rlk_a", "gk_b", "gk_a"), (draw(k) for _ in range(4))))
+    return out
+
+
+def scan_meshes(world: int, device):
+    """{name: mesh} the scan-step cases run on: ("data",) and (1, 2)
+    ("data", "model") on 2 ranks; (2, 2) and a (2, 1, 2) ("pod", "data",
+    "model") mesh on 4."""
+    from repro_torch.launch import mesh as M
+    if world == 2:
+        return {"data2": M.make_scan_mesh(2, device=device),
+                "1x2": M.make_query_mesh(1, 2, device=device)}
+    return {"2x2": M.make_query_mesh(2, 2, device=device),
+            "pod2x1x2": M.make_step_mesh(2, 1, 2, device=device)}
+
+
+def case_scan_step(device):
+    """`query_step_sharded` at `smoke()` on `SCAN_BLOCKS` blocks in both
+    key-switch modes on each of `scan_meshes`, each rank holding only
+    its shard (chunk: all of its blocks, and 1): the aggregate gathered
+    along "model", the collective record of the step alone, and
+    `keyswitch_sharded` of block 0's second component (this rank's
+    limbs of it), gathered."""
+    import torch.distributed as dist
+    from repro_torch.configs.nshedb import smoke
+    from repro_torch.core import collectives as C
+    from repro_torch.launch import nshedb_step as S
+    cfg = smoke()
+    consts = S.make_constants(cfg, device=device)
+    full = {key: torch.from_numpy(a).to(device)
+            for key, a in scan_inputs(consts["q"].cpu().numpy(), cfg.k, cfg.n).items()}
+    out = {}
+    for name, mesh in scan_meshes(dist.get_world_size(), device).items():
+        for mode in S.KS_MODES:
+            local = S.shard_inputs(full, mesh, mode)
+            keys = [local[key] for key in ("rlk_b", "rlk_a", "gk_b", "gk_a")]
+            nb = local["cts_col"].shape[0]
+            for chunk in sorted({nb, 1}):
+                C.reset_collective_record()
+                agg = S.query_step_sharded(
+                    local["cts_col"], local["cts_val"], *keys, consts["tabs"], consts["perm"],
+                    mesh, eq_levels=cfg.eq_levels, rot_steps=cfg.rot_steps, ks_mode=mode,
+                    chunk=chunk)
+                record = C.collective_record()
+                out[name, mode, chunk] = {
+                    "agg": C.gather_axis(agg, mesh, "model", dim=1).cpu().numpy(),
+                    "record": record, "blocks_per_rank": nb,
+                    "mesh": (tuple(mesh.shape), tuple(mesh.mesh_dim_names))}
+            limbs = "model" if "model" in mesh.mesh_dim_names else None
+            poly = S.local_shard(full["cts_col"][0, 1], (limbs, None), mesh)
+            ks = S.keyswitch_sharded(poly, keys[0], keys[1], consts["tabs"], mesh, mode)
+            out[name, mode, "keyswitch"] = [C.gather_axis(x, mesh, "model", dim=0).cpu().numpy()
+                                            for x in ks]
+    return out
+
+
 def compressed_psum_expected(gs) -> np.ndarray:
     """The numpy formula of `compressed_psum` over the ranks' gradients
     `gs`: one scale from the largest |g| of any rank, each g rounded half
@@ -181,7 +251,8 @@ def compressed_psum_expected(gs) -> np.ndarray:
 
 CASES = {fn.__name__[5:]: fn for fn in (case_fold, case_bfv_fold, case_mock_q1,
                                          case_bfv_1x2, case_bfv_2x2, case_auto,
-                                         case_kswitch, case_compressed_psum)}
+                                         case_kswitch, case_compressed_psum,
+                                         case_scan_step)}
 
 
 def _rank_main(rank, world, work_dir, names, device):
