@@ -424,7 +424,7 @@ def phase_kernels(paper) -> dict:
             out[name]["at_shapes"][f"{rows}/{rows_b}"] = _timed(
                 name, lambda op=op, a=a, b=b: op(a, b), a,
                 (2 * a.numel() + b.numel()) * E8, per_elem * a.numel())
-    rr_checks, out["rotate_reduce"] = _rotate_reduce_kernel(paper, rng, dev)
+    rr_checks, out["rotate_reduce"] = _rotate_reduce_kernel(paper, dev)
     fa_checks, out["flash_attn"] = _flash_attn_kernel(rng, dev)
     emit("kernel_checks", {"equal_to_plain_version": checks + rr_checks,
                            "tolerance": "exact (torch.equal)",
@@ -432,44 +432,126 @@ def phase_kernels(paper) -> dict:
     return out
 
 
-def _rotate_reduce_kernel(paper, rng, dev) -> tuple[int, dict]:
-    """rotate_reduce against its plain version (full mode and chunks 8 and
-    n/16, n in {256, 16384}, rows in {1, 3, 368}, lanes at 0 and t-1),
-    then timed at the half-row shapes `MockBackend.sum_slots` gives it:
-    (2, n/2) for LINEITEM at 32768 rows (one block) and (368, n/2) for
-    TPC-H SF-1 (6,001,215 rows, 184 blocks)."""
+RR_NS = (1, 32, 256, 16384, 65536)
+RR_ROWS = (1, 2, 3, 368)
+RR_RING = 4          # distinct inputs a cold-L2 timing cycles through
+
+
+def _rr_rows(gen, rows, n, t, dev):
+    """(rows, n) int64 values in [0, t_row) on the card (t: an int or a
+    (rows, 1) table): lane 0 at t - 1, the last lane 0 in every other row,
+    row 2 all t - 1."""
+    x = torch.randint(0, 1 << 62, (rows, n), generator=gen, device=dev) % t
+    tcol = t if isinstance(t, int) else t[:, 0]
+    x[:, 0] = tcol - 1
+    x[1::2, -1] = 0
+    if rows > 2:
+        x[2] = (t if isinstance(t, int) else int(t[2, 0])) - 1
+    return x
+
+
+def _cold_ms(fn, inputs) -> float:
+    """gpu_ms of fn over a ring of distinct inputs, each output held until
+    its slot comes round again: every call finds its operands and its
+    output buffer out of the 50 MB L2 when the ring is well past it."""
+    outs = [None] * len(inputs)
+    at = [0]
+
+    def step():
+        k = at[0] % len(inputs)
+        at[0] += 1
+        outs[k] = fn(inputs[k])
+
+    return gpu_ms(step, reps=10, inner=20)
+
+
+def _rr_bound(x, chunk_mode: bool) -> tuple[float, str]:
+    """(bound ms, what bounds it): each value read once and written once
+    in x's width; one add mod t a value in full mode, three (the prefix
+    add, the window's subtract and, for a wrapped window, an add) in
+    chunk mode."""
+    t_bytes = 2 * x.numel() * x.element_size() / PEAK_BYTES_PER_S * 1e3
+    t_ops = (3 if chunk_mode else 1) * x.numel() / PEAK_INT_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _rotate_reduce_kernel(paper, dev) -> tuple[int, dict]:
+    """rotate_reduce against its plain version, exactly: full mode and
+    each of the chunks 1, 8, n/16 and n that is a power of two <= n, n in
+    RR_NS, rows in RR_ROWS, int32 and int64, one t and a per-row table of
+    distinct primes below 2^30 (in the rows' dtype).  Then timed at the
+    half-row shapes `MockBackend.sum_slots` gives it, int32 as it sends
+    them and int64 as it sent them before: (2, n/2) for LINEITEM at 32768
+    rows (one block) and (368, n/2) for TPC-H SF-1 (6,001,215 rows, 184
+    blocks), the latter over a ring of inputs and outputs past the L2;
+    chunk n/16 at (368, n/2); each beside the library yardstick, and the
+    (2, n/2) one beside an empty launch queued the same way; the three
+    int32 shapes at every cluster size."""
+    from repro_torch.core.mathutil import find_ntt_primes
+    from repro_torch.kernels.rotate_reduce import rotate_reduce as rr_launch
     from repro_torch.kernels.rotate_reduce.ops import rotate_reduce
     from repro_torch.kernels.rotate_reduce.ref import rotate_reduce_ref
 
     t = paper.t
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    # distinct primes below 2^30 (odd: 1 mod 2), whose sums stay inside
+    # int32 as the Pallas kernel adds
+    table = torch.tensor(find_ntt_primes(1, 30, max(RR_ROWS)), device=dev)[:, None]
     checks = 0
-    for n in (256, 16384):
-        for rows in (1, 3, 368):
-            x = rng.integers(0, t, (rows, n))
-            x[0, :4] = [0, t - 1, t - 1, 0]
-            x = torch.from_numpy(x).to(dev)
-            for chunk in (None, 8, n // 16):
-                _check_equal("rotate_reduce", rotate_reduce(x, t, chunk),
-                             rotate_reduce_ref(x, t, chunk), f"({rows}, {n}) chunk={chunk}")
-                checks += 1
+    for n in RR_NS:
+        chunks = [None] + sorted({c for c in (1, 8, n // 16, n) if 1 <= c <= n})
+        for rows in RR_ROWS:
+            for ts in (t, table[:rows]):
+                x64 = _rr_rows(gen, rows, n, ts, dev)
+                for dtype in (torch.int32, torch.int64):
+                    x = x64.to(dtype)
+                    tx = ts if isinstance(ts, int) else ts.to(dtype)
+                    kind = "one t" if isinstance(ts, int) else "per-row t"
+                    for chunk in chunks:
+                        _check_equal("rotate_reduce", rotate_reduce(x, tx, chunk),
+                                     rotate_reduce_ref(x, tx, chunk),
+                                     f"({rows}, {n}) {dtype} {kind} chunk={chunk}")
+                        checks += 1
+                del x64, x
     half = paper.n // 2
+    library = lambda x: (x.sum(-1, keepdim=True) % t).expand_as(x).contiguous()  # noqa: E731
     timed = {}
-    for rows in (2, 368):
-        x = torch.from_numpy(rng.integers(0, t, (rows, half))).to(dev)
-        err = _check_equal("rotate_reduce", rotate_reduce(x, t), rotate_reduce_ref(x, t),
-                           f"main-path shape {(rows, half)}")
-        t_bytes = 2 * x.numel() * 8 / PEAK_BYTES_PER_S * 1e3
-        t_ops = x.numel() / PEAK_INT_OPS_PER_S * 1e3
-        timed[rows] = {
-            "shape": [rows, half], "max_abs_err": err,
-            "ms": gpu_ms(lambda: rotate_reduce(x, t), reps=10, inner=20),
-            "plain_ms": gpu_ms(lambda: rotate_reduce_ref(x, t), reps=5),
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": gpu_ms(
-                lambda: (x.sum(-1, keepdim=True) % t).expand_as(x).contiguous(),
-                reps=10, inner=20)}
-    return checks, {**timed[2], "at_368_rows": timed[368]}
+    for dtype in (torch.int32, torch.int64):
+        for rows, chunk in ((2, None), (368, None), (368, half // 16)):
+            if dtype == torch.int64 and chunk is not None:
+                continue
+            x = _rr_rows(gen, rows, half, t, dev).to(dtype)
+            stop_log = (half if chunk is None else chunk).bit_length() - 1
+            err = _check_equal("rotate_reduce", rotate_reduce(x, t, chunk),
+                               rotate_reduce_ref(x, t, chunk),
+                               f"main-path shape {(rows, half)} {dtype} chunk={chunk}")
+            bound, by = _rr_bound(x, chunk is not None)
+            cold = rows > 2
+            ring = [x] + [_rr_rows(gen, rows, half, t, dev).to(dtype)
+                          for _ in range(RR_RING - 1)] if cold else None
+
+            def time_it(fn):
+                return _cold_ms(fn, ring) if cold else gpu_ms(lambda: fn(x), reps=10, inner=20)
+
+            rec = {"shape": [rows, half], "dtype": str(dtype).split(".")[-1],
+                   "chunk": chunk, "l2": "cold" if cold else "warm", "max_abs_err": err,
+                   "cluster": rr_launch.cluster_size(rows, half, torch.cuda.get_device_properties(
+                       dev).multi_processor_count, chunk is not None),
+                   "ms": time_it(lambda a: rotate_reduce(a, t, chunk)),
+                   "plain_ms": gpu_ms(lambda: rotate_reduce_ref(x, t, chunk), reps=5),
+                   "bound_ms": bound, "bound_by": by,
+                   "library_ms": time_it(library) if chunk is None else None}
+            if rows == 2:
+                rec["empty_launch_ms"] = gpu_ms(lambda: torch.cuda._sleep(1), reps=10, inner=20)
+            if dtype == torch.int32:
+                rec["ms_by_cluster"] = {
+                    str(c): time_it(lambda a, c=c: rr_launch.rotate_reduce_cuda(
+                        a, t, stop_log, cluster=c)) for c in (1, 2, 4, 8)}
+            key = f"{rows}x{half}_{rec['dtype']}" + ("" if chunk is None else f"_chunk{chunk}")
+            timed[key] = rec
+            del ring, x
+    main = timed.pop(f"2x{half}_int32")
+    return checks, {**main, "at_shapes": timed}
 
 
 def _visible_pairs(sq: int, sk: int, causal: bool, window: int | None) -> int:

@@ -867,8 +867,9 @@ class MockBackend(_BackendBase):
         noise = a.noise
         for _ in range(steps):
             noise = self.model.add(noise, self.model.rotate(noise))
-        rows = torch.from_numpy(a.vec.reshape(-1, half)).to(self.device)
-        red = rotate_reduce(rows, self.t).cpu().numpy()   # (2*nb, half)
+        # half-rows as int32, as the reference's wrapper casts them
+        rows = torch.from_numpy(a.vec.reshape(-1, half).astype(np.int32)).to(self.device)
+        red = rotate_reduce(rows, self.t).cpu().numpy().astype(np.int64)   # (2*nb, half)
         red = red.reshape(-1, 2, half)
         total = (red[:, 0] + red[:, 1]) % self.t    # (nb, half) full sums
         vec = np.concatenate([total, total], axis=-1).reshape(a.vec.shape)

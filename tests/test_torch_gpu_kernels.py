@@ -46,12 +46,13 @@ from repro_torch.kernels.flash_attn import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attn.ref import mha_ref  # noqa: E402
 from repro_torch.kernels.rotate_reduce import ops as rr_ops  # noqa: E402
 from repro_torch.kernels.rotate_reduce import ref as rr_ref  # noqa: E402
+from repro_torch.kernels.rotate_reduce import rotate_reduce as rr_launch  # noqa: E402
 from repro_torch.configs.nshedb import CONFIG, smoke  # noqa: E402
 from repro_torch.launch import nshedb_step  # noqa: E402
 from repro_torch.runtime.checkpoint import CheckpointManager  # noqa: E402
 from torch_cases import (bfv_shard_db, bfv_shard_oracle, bfv_shard_plans, engine_mods,  # noqa: E402
-                         lane_chunk_run, legacy_query_run, qkv_arrays, sharded_run,
-                         sum_slots_run)
+                         lane_chunk_run, legacy_query_run, planted_rows, qkv_arrays,
+                         sharded_run, sum_slots_run)
 from torch_mesh_ranks import Ranks, scan_inputs  # noqa: E402
 
 T = 65537
@@ -171,6 +172,62 @@ def test_cuda_kernel_equals_plain_version(cuda_device, rows, n):
         got = rr_ops.rotate_reduce(x, T, chunk=chunk)
         assert kernels.launch_counts()["rotate_reduce"] == before + 1
         assert torch.equal(got, rr_ref.rotate_reduce_ref(x, T, chunk))
+
+
+def _rr_chunks(n):
+    """Full mode and each of the chunks 1, 8, n/16 and n that is a power
+    of two no larger than n."""
+    return [None] + sorted({c for c in (1, 8, n // 16, n) if 1 <= c <= n})
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("n", [1, 32, 256, 16384, 65536])
+@pytest.mark.parametrize("rows", [1, 2, 3, 368])
+def test_cuda_kernel_equals_plain_version_per_row_t(cuda_device, rows, n, dtype):
+    """Rows and a per-row table of distinct primes below 2^30 in `dtype`,
+    and one t: every mode, one launch a call, the rows' dtype kept."""
+    t = np.array(find_ntt_primes(1, 30, rows))[:, None]
+    x = torch.from_numpy(planted_rows(rows, n, t, seed=rows + n)).to(cuda_device, dtype)
+    table = torch.from_numpy(t).to(cuda_device, dtype)
+    one = torch.from_numpy(planted_rows(rows, n, np.full((rows, 1), T), seed=n)).to(
+        cuda_device, dtype)
+    for xs, ts in ((x, table), (one, T)):
+        for chunk in _rr_chunks(n):
+            before = kernels.launch_counts()["rotate_reduce"]
+            got = rr_ops.rotate_reduce(xs, ts, chunk=chunk)
+            assert kernels.launch_counts()["rotate_reduce"] == before + 1
+            assert got.dtype == dtype
+            assert torch.equal(got, rr_ref.rotate_reduce_ref(xs, ts, chunk))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+def test_cuda_kernel_equals_plain_version_at_every_cluster_size(cuda_device, cluster):
+    """The blocks a row is split over change no value (both modes)."""
+    t = np.array(find_ntt_primes(1, 30, 3))[:, None]
+    x = torch.from_numpy(planted_rows(3, 16384, t, seed=cluster)).to(cuda_device, torch.int32)
+    table = torch.from_numpy(t).to(cuda_device)
+    for stop_log in (14, 0, 3, 10):
+        got = rr_launch.rotate_reduce_cuda(x, table, stop_log, cluster=cluster)
+        chunk = None if stop_log == 14 else 1 << stop_log
+        assert torch.equal(got, rr_ref.rotate_reduce_ref(x, table, chunk))
+
+
+@pytest.mark.gpu
+def test_cuda_kernel_refuses_what_the_cpu_refuses(cuda_device):
+    """A table on the host for rows on the card, t past 2^31 and n past
+    the cluster's capacity in chunk mode raise before any launch."""
+    x = torch.zeros((3, 64), dtype=torch.int32, device=cuda_device)
+    before = kernels.launch_counts()["rotate_reduce"]
+    for t in (torch.full((3, 1), T), 1 << 31,
+              torch.tensor([[T], [T], [1 << 31]], device=cuda_device)):
+        with pytest.raises(ValueError):
+            rr_ops.rotate_reduce(x, t)
+    with pytest.raises(ValueError, match="chunk mode"):
+        rr_ops.rotate_reduce(torch.zeros((1, 2 * rr_launch.MAX_CHUNK_N), dtype=torch.int32,
+                                         device=cuda_device), T, chunk=8)
+    assert kernels.launch_counts()["rotate_reduce"] == before
 
 
 @pytest.mark.gpu

@@ -37,6 +37,19 @@ def sum_slots_run(bk, mods):
             dataclasses.asdict(bk.stats))
 
 
+def planted_rows(rows, n, t, seed):
+    """(rows, n) int64 values in [0, t_row) for the (rows, 1) moduli t:
+    lane 0 at t - 1 and the last lane at 0 in every other row, row 2 all
+    t - 1 (every add of the doubling loop then wraps)."""
+    rng = np.random.default_rng(seed)
+    x = rng.integers(0, t, (rows, n))
+    x[:, 0] = t[:, 0] - 1
+    x[1::2, -1] = 0
+    if rows > 2:
+        x[2] = t[2, 0] - 1
+    return x
+
+
 def qkv_arrays(B, H, Hkv, Sq, Sk, D, seed=0):
     """q (B, H, Sq, D) and k, v (B, Hkv, Sk, D): float32 numpy normals,
     drawn in that order from one generator seeded with `seed`."""
