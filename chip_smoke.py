@@ -64,11 +64,15 @@ full width and depth, and its training path at starcoder2-3b's:
             versions;
   mesh      four ranks sharing the card over gloo (CUDA tensors) on a
             2 x 2 ("data", "model") mesh, each running Q1 at the paper's
-            parameters with the key switches gathered over "model" (Q1's
-            one block is one lane, so in Q1 the "data" axis only
-            replicates); then in the same ranks, at the same parameters,
-            a 4-lane key switch split 2 lanes a "data" rank and a 4-lane
-            fold summed over "data", both against one device; then the
+            parameters with every stacked batch held sharded over "data"
+            (Q1's one block stacks one fused 6-lane batch of its 5 EQ
+            atoms: 3 lanes a rank) and the key switches gathered over
+            "model", its ledger equal to a logical 2 x 2 context's; then
+            in the same ranks, at the same parameters, a 4-lane BFV batch
+            of 3 live blocks held sharded (2 lanes a rank) through mul,
+            rotate, fold, decrypt and a refresh of lanes 0 and 2, then
+            one more encryption, each against the same calls on one
+            device from the same generator state; then the
             scan step on the mesh (`nshedb_step.query_step_sharded`) at
             `CONFIG` on 16 blocks, 8 a "data" rank and 16 limbs a "model"
             rank, each rank holding only its shard, in both key-switch
@@ -2084,12 +2088,52 @@ MESH_DIR = os.path.join(HERE, ".scratch", "mesh")
 MESH_TIMEOUT_S = 900         # rendezvous, each collective, and the joins
 
 
+def _mesh_logical_ledger() -> dict:
+    """Q1's ledger on a logical 2 x 2 context (no process group): the
+    Mock backend at the paper's noise profile over the same LINEITEM
+    32768 rows charges what BFV charges (the ledger counts op units, not
+    launches), in seconds on the host.  Runs in a child process beside
+    the ranks."""
+    from repro_torch.engine import queries, tpch
+    from repro_torch.engine.backend import MockBackend
+    from repro_torch.engine.planner import Planner
+
+    db = tpch.load(MockBackend(device="cpu"), tpch.Scale(), tables=["lineitem"])
+    pl = Planner(db, optimized=True, shards=MESH_GRID[0], limb_shards=MESH_GRID[1])
+    if pl.shard_ctx.mesh is not None:
+        raise AssertionError("the logical ledger's context has a mesh")
+    queries.run_via_plan(pl, queries.plan_q1())
+    return pl.shard_ctx.ledger_snapshot()
+
+
+def _circuit_lanes(bk) -> list:
+    """(lanes held, lanes of the whole batch) of every stacked batch that
+    enters a circuit (`bk.map_lanes`) from now on, appended to the list
+    returned."""
+    from repro_torch.core.bfv import CiphertextBatch
+
+    seen, orig = [], bk.map_lanes
+
+    def map_lanes(fn, x, *args):
+        if isinstance(x, CiphertextBatch):
+            seen.append((int(x.data.shape[0]), x.nphys))
+        return orig(fn, x, *args)
+
+    bk.map_lanes = map_lanes
+    return seen
+
+
 def _mesh_q1(expect_stats) -> dict:
     """One rank's TPC-H Q1 at `paper_params()` on LINEITEM 32768 rows on
     a real ("data", "model") mesh (CUDA tensors, gloo): the same keys and
-    table in every rank (seeded), key switches gathered over "model".
-    The table is one block, one lane, so no key switch splits lanes and
-    no fold crosses "data" in Q1; `_mesh_data_axis` then drives both."""
+    table in every rank (seeded), every stacked batch held sharded over
+    "data", key switches gathered over "model".  The table is one block:
+    Q1 stacks one fused 6-lane batch of its 5 EQ atoms (3 lanes a rank)
+    and folds nothing; `_mesh_data_axis` then drives the fold and the
+    other lane-crossing calls.  `expect_stats`: the unsharded run's
+    OpStats (None to skip).  The parent holds the ledger against a
+    logical 2 x 2 context's."""
+    from repro_torch.core import collectives as C
     from repro_torch.core.params import paper_params
     from repro_torch.engine import queries
     from repro_torch.engine.planner import Planner
@@ -2097,10 +2141,13 @@ def _mesh_q1(expect_stats) -> dict:
     bk, db, secs = load_paper_lineitem(paper_params())
     pl = Planner(db, optimized=True, shards=MESH_GRID[0], limb_shards=MESH_GRID[1])
     mesh = pl.shard_ctx.mesh
+    lanes = _circuit_lanes(bk)
+    C.reset_collective_record()
     run = _via_plan(bk, pl)
+    record = C.collective_record()
     ledger = pl.shard_ctx.ledger_snapshot()
     exp = queries.oracle_q1(db)
-    data_axis = _mesh_data_axis(bk, mesh)
+    data_axis = _mesh_data_axis(bk, pl.shard_ctx)
     bad = []
     if mesh is None or pl.shard_ctx.limb_mesh is None or mesh.device_type != "cuda":
         bad.append(f"no real CUDA query mesh: {mesh}")
@@ -2110,40 +2157,82 @@ def _mesh_q1(expect_stats) -> dict:
         bad.append(f"OpStats {run['op_stats']} != unsharded {expect_stats}")
     if run["op_stats"]["refresh"] != 0 or not ledger["gather_bytes"] > 0:
         bad.append(f"refresh {run['op_stats']['refresh']}, gather bytes {ledger['gather_bytes']}")
+    batches = [(held, whole) for held, whole in lanes if whole > 1]
+    if not batches or any(held != whole // MESH_GRID[0] for held, whole in batches):
+        bad.append(f"circuit batches (held, whole lanes) {lanes}: not held over \"data\"")
     bad += data_axis.pop("failures")
     return {"mesh": {"device_type": mesh.device_type, "shape": list(mesh.shape),
                      "axes": list(mesh.mesh_dim_names)} if mesh is not None else None,
             "keygen_s": round(secs["keygen"], 3), "load_encrypt_s": round(secs["load_encrypt"], 3),
             "query_s": run["query_s"], "stage_s": {k: round(v, 3) for k, v in run["secs"].items()},
             "equal_to_oracle": run["got"] == exp, "op_stats": run["op_stats"],
-            "ledger": {k: ledger[k] for k in ("gathers", "gather_bytes", "folds", "real_mesh")},
+            "circuit_lanes": {"held_max": max(h for h, _ in batches) if batches else None,
+                              "held_min": min(h for h, _ in batches) if batches else None,
+                              "whole": sorted({w for _, w in batches}),
+                              "batches": len(batches)},
+            "collective_bytes": record,
+            "ledger": ledger,
             "kernel_launches": run["launches"], "peak_device_bytes": run["peak_device_bytes"],
             "data_axis": data_axis, "failures": bad}
 
 
-def _mesh_data_axis(bk, mesh) -> dict:
-    """What Q1's one block leaves idle on the "data" axis, at the
-    paper's parameters on the same mesh: `kswitch_gathered` of a 4-lane
-    batch (2 lanes a "data" rank, 15 limbs a "model" rank) against the
-    one-device key switch, and `sharded_fold` of 4 lanes, 3 of them
-    live, against their plain sum.  The draws are seeded, so every rank
-    holds the same batch."""
-    from repro_torch.engine.sharded import sharded_fold
+def _mesh_data_axis(bk, shard_ctx) -> dict:
+    """Real ciphertexts held sharded over "data", at the paper's
+    parameters on the same mesh: 3 blocks stacked into a 4-lane batch (2
+    lanes a rank) through mul (the key switch on this rank's lanes, 15
+    limbs a "model" rank), rotate, fold_blocks (summed over "data"),
+    decrypt and `refresh_inplace` of the global lanes 0 and 2, then one
+    more encryption; and the same calls on one device (no shard context)
+    from the same generator state.  Every gathered residue, decrypt,
+    noise and the last encryption must be equal (the refresh re-encrypts
+    from the generator on every rank in the same order)."""
+    import hashlib
 
-    ctx, rlk, paper = bk.ctx, bk.keys.rlk, bk.ctx.params
-    rng = np.random.default_rng(SEED + 3)
-    poly = _rand_limbs(rng, paper.Q.primes, (4,), paper.n, bk.device)
-    data = _rand_limbs(rng, paper.Q.primes, (4, 2), paper.n, bk.device)
+    from repro_torch.engine.sharded import activate
+
+    start = bk.ctx.rng.bit_generator.state
+    vecs = [(np.arange(bk.slots) * (i + 3)) % 1000 for i in range(3)]
+
+    def calls(ctx):
+        bk.ctx.rng.bit_generator.state = start
+        cts = [bk.encrypt(v) for v in vecs]
+        out = {}
+        with activate(bk, ctx):
+            x = bk.stack_blocks(cts)
+            prod, rot = bk.mul(x, x), bk.rotate(x, 1)
+            out["held"] = [int(b.data.shape[0]) for b in (x, prod, rot)]
+            out["mul"] = torch.stack([c.data for c in bk.unstack_blocks(prod)])
+            out["rotate"] = torch.stack([c.data for c in bk.unstack_blocks(rot)])
+            out["fold"] = bk.fold_blocks(prod).data
+            out["decrypt"] = bk.decrypt(rot)
+            bk.refresh_inplace(prod, [0, 2])
+            out["refreshed"] = torch.stack([c.data for c in bk.unstack_blocks(prod)])
+            out["refreshed_decrypt"] = bk.decrypt(prod)
+            out["noise"] = np.asarray(prod.noise)
+        out["encrypt"] = bk.encrypt(vecs[0]).data
+        return out
+
     t0 = clock()
-    got = ctx.kswitch_gathered(poly, rlk, mesh)
-    ks_s = clock() - t0
-    ks_equal = all(torch.equal(g, e) for g, e in zip(got, ctx._kswitch_inner(poly, rlk.b, rlk.a)))
-    del got
-    fold_equal = torch.equal(sharded_fold(data, 3, mesh), data[:3].sum(0))
-    bad = [] if ks_equal and fold_equal else [
-        f"data axis: kswitch_gathered equal {ks_equal}, sharded_fold equal {fold_equal}"]
-    return {"kswitch_gathered_4_lanes_equal": ks_equal, "kswitch_gathered_s": ks_s,
-            "sharded_fold_4_lanes_equal": fold_equal, "failures": bad}
+    sharded = calls(shard_ctx)
+    secs = clock() - t0
+    one = calls(None)
+    equal = {}
+    for key, got in sharded.items():
+        if key == "held":
+            continue
+        ref = one[key]
+        equal[key] = (torch.equal(got, ref) if isinstance(got, torch.Tensor)
+                      else bool(np.array_equal(got, ref)))
+    bad = []
+    if not all(equal.values()):
+        bad.append(f"data axis: sharded calls != one device: {equal}")
+    if sharded["held"] != [2, 2, 2] or one["held"] != [3, 3, 3]:
+        bad.append(f"data axis: lanes held {sharded['held']} (one device {one['held']})")
+    if np.ndim(sharded["noise"]) != 1:
+        bad.append(f"data axis: refresh of lanes 0, 2 left noise {sharded['noise']}")
+    digest = hashlib.sha256(sharded["encrypt"].cpu().numpy().tobytes()).hexdigest()
+    return {"lanes": 4, "live": 3, "held": sharded["held"], "equal_to_one_device": equal,
+            "sharded_s": secs, "encrypt_after_sha256": digest, "failures": bad}
 
 
 # the scan step on the same ranks: CONFIG at full width on 16 blocks
@@ -2248,9 +2337,10 @@ def _mesh_scan() -> dict:
 
 def _mesh_nccl() -> dict:
     """One rank under NCCL (a 1 x 1 mesh): `kswitch_gathered` of a 5-lane
-    batch and `sharded_fold` at `paper_params()` against the one-device
-    key switch and sum."""
-    from repro_torch.core.bfv import BFVContext
+    batch and `sharded_fold` at `paper_params()`, the fold both of the
+    whole batch and of it held as this rank's lanes (`LaneShard`: all
+    five here), against the one-device key switch and sum."""
+    from repro_torch.core.bfv import BFVContext, LaneShard
     from repro_torch.core.params import paper_params
     from repro_torch.engine.sharded import sharded_fold
     from repro_torch.launch.mesh import make_query_mesh
@@ -2263,9 +2353,11 @@ def _mesh_nccl() -> dict:
     got = ctx.kswitch_gathered(poly, rlk, mesh)
     exp = ctx._kswitch_inner(poly, rlk.b, rlk.a)
     data = torch.stack([poly, poly.flip(0)], dim=1)
+    lanes = LaneShard(0, LANES, LANES, mesh)
     return {"mesh": {"device_type": mesh.device_type, "shape": list(mesh.shape)},
             "kswitch_gathered_equal": all(torch.equal(g, e) for g, e in zip(got, exp)),
-            "sharded_fold_equal": torch.equal(sharded_fold(data, 3, mesh), data[:3].sum(0)),
+            "sharded_fold_equal": all(torch.equal(sharded_fold(data, 3, mesh, held),
+                                                  data[:3].sum(0)) for held in (None, lanes)),
             "failures": []}
 
 
@@ -2345,22 +2437,28 @@ def _summed(counts) -> dict:
 
 def phase_mesh(expect_stats) -> tuple[dict, dict]:
     """Four ranks sharing the card over gloo on a 2 x 2 ("data", "model")
-    mesh, each running Q1 on real ciphertexts (every rank equal to the
-    oracle, OpStats equal to the unsharded run's), then the "data" axis'
-    key switch and fold against one device, then the scan step on the
-    mesh against one device and the dry-run; then one rank under NCCL.
-    Returns the launch counts of the four ranks' queries and of their
-    scan steps, each summed over the ranks (the checks after Q1 and the
-    one-device scan are not counted)."""
+    mesh, each running Q1 on real ciphertexts held sharded over "data"
+    (every rank equal to the oracle, OpStats equal to the unsharded run's,
+    its ledger to a logical 2 x 2 context's), then a sharded BFV batch's
+    mul, rotate, fold, decrypt and refresh against one device, then the
+    scan step on the mesh against one device and the dry-run; then one
+    rank under NCCL.  Returns the launch counts of the four ranks'
+    queries and of their scan steps, each summed over the ranks (the
+    checks after Q1 and the one-device scan are not counted)."""
     shutil.rmtree(MESH_DIR, ignore_errors=True)
     os.makedirs(MESH_DIR)
     t0 = time.perf_counter()
-    scan_expect = _mesh_scan_expected()
-    expect_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    world = MESH_GRID[0] * MESH_GRID[1]
-    recs = _run_ranks(world, "gloo", expect_stats)
-    gloo_s = time.perf_counter() - t0
+    with _beside(_mesh_logical_ledger) as logical:
+        scan_expect = _mesh_scan_expected()
+        expect_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        world = MESH_GRID[0] * MESH_GRID[1]
+        recs = _run_ranks(world, "gloo", expect_stats)
+        gloo_s = time.perf_counter() - t0
+        ledger = logical()
+    for rec in recs:
+        rec["ledger_equal_to_logical"] = (rec["ledger"]["real_mesh"]
+                                          and dict(rec["ledger"], real_mesh=False) == ledger)
     t0 = time.perf_counter()
     nccl = _run_ranks(1, "nccl")[0]
     scans = [rec.pop("scan_step") for rec in recs]
@@ -2383,6 +2481,13 @@ def phase_mesh(expect_stats) -> tuple[dict, dict]:
                   "scan_kernel_launches": _summed(scan["kernel_launches"] for scan in scans)})
     if not (nccl["kswitch_gathered_equal"] and nccl["sharded_fold_equal"]):
         raise AssertionError(f"mesh phase: NCCL 1 x 1 run disagrees: {nccl}")
+    off = [r for r, rec in enumerate(recs) if not rec["ledger_equal_to_logical"]]
+    if off:
+        raise AssertionError(f"mesh phase: ranks {off}: ledgers differ from the logical "
+                             f"2 x 2 context's {ledger}")
+    digests = {rec["data_axis"]["encrypt_after_sha256"] for rec in recs}
+    if len(digests) != 1:
+        raise AssertionError(f"mesh phase: the ranks' generators left step: {digests}")
     off = [(mode, r) for mode, rec in beside.items() for r, got in enumerate(rec["ranks"])
            if got["collective_bytes"] != rec["dryrun"]["collective_bytes"]]
     if off:

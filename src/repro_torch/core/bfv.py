@@ -26,9 +26,15 @@ same pointwise kernels over the (2, k, n) payload.  Everything else
 plain tensor code on the context's device.
 
 On a ("data", "model") device mesh (launch/mesh.py) every rank runs the
-same program on the same state; only the key switch splits its work by
-rank (`kswitch_gathered`) and gathers the result back, so every rank
-ends with the bytes one device computes.
+same program.  A stacked batch the query engine places on the mesh is
+held sharded over "data" (`CiphertextBatch.lanes`): each rank keeps and
+computes only its own lanes, with every limb of them, and the key
+switch splits those lanes' limbs over "model" (`kswitch_gathered`),
+all-gathering digits and outputs there.  Keys, singletons and the
+noise accounting are the same on every rank.  A sharded batch pairs
+only with one holding the same lanes or with a singleton; the lanes
+cross ranks only where the engine gathers or folds them, so every
+gathered result has the bytes one device computes.
 
 Tensors are never updated in place once they are part of a ciphertext:
 handles are aliased by the engine's mask cache, so ops that rewrite one
@@ -41,6 +47,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -62,6 +69,15 @@ class Ciphertext:
         return -(self.noise + 1.0)
 
 
+class LaneShard(NamedTuple):
+    """The lanes [lo, hi) of a `total`-lane batch that this rank holds,
+    and the mesh whose "data" axis splits the batch."""
+    lo: int
+    hi: int
+    total: int
+    mesh: object
+
+
 @dataclasses.dataclass
 class CiphertextBatch:
     """A stacked column of ciphertext blocks with one shared op history.
@@ -79,19 +95,25 @@ class CiphertextBatch:
     the logical block count.  `nblocks` reports the live count (so
     OpStats/noise accounting stay identical to the unpadded path) while
     `nphys` reports the padded leading axis.
+
+    `lanes` is set when the batch is held sharded over a mesh's "data"
+    axis: `data` then holds only this rank's lanes of the batch, while
+    `nblocks`, `nphys` and `noise` keep describing the whole (global)
+    batch, the same on every rank.
     """
-    data: torch.Tensor       # (nblocks, 2, k, n) int64
+    data: torch.Tensor       # (nblocks, 2, k, n) int64; this rank's lanes if sharded
     noise: "float | np.ndarray"
     params: HEParams
     live: int | None = None
+    lanes: LaneShard | None = None
 
     @property
     def nblocks(self) -> int:
-        return self.live if self.live is not None else self.data.shape[0]
+        return self.live if self.live is not None else self.nphys
 
     @property
     def nphys(self) -> int:
-        return self.data.shape[0]
+        return self.data.shape[0] if self.lanes is None else self.lanes.total
 
     @property
     def budget(self) -> float:
@@ -154,6 +176,21 @@ def ciphertext_from_numpy(data, noise, params: HEParams, device="cuda"):
                      f"got {data.shape}")
 
 
+def _lane_text(ct) -> str:
+    """What a ciphertext or batch holds, for an error message."""
+    lanes = getattr(ct, "lanes", None)
+    if lanes is not None:
+        return f"lanes [{lanes.lo}, {lanes.hi}) of {lanes.total}"
+    return f"a whole batch of {ct.data.shape[0]} lanes" if ct.data.ndim == 4 else "a ciphertext"
+
+
+def _whole(batch: CiphertextBatch, what: str) -> None:
+    """Raise if `batch` is held sharded: `what` needs every lane."""
+    if batch.lanes is not None:
+        raise ValueError(f"{what} needs the whole batch, but this rank holds "
+                         f"{_lane_text(batch)}: gather them first (BFVContext.gather_lanes)")
+
+
 class BFVContext:
     """Binds a parameter set to a device; owns the scheme's primitives.
 
@@ -206,8 +243,20 @@ class BFVContext:
     @staticmethod
     def _pick(a, b):
         """Of two operands, the one whose type the result should take
-        (the batched one, when single and batch are mixed)."""
-        return a if a.data.ndim >= b.data.ndim else b
+        (the batched one, when single and batch are mixed).  A batch held
+        sharded pairs with a batch holding the same lanes, or with a
+        singleton (a ciphertext, or a batch of one lane), which
+        broadcasts; any other pair raises rather than broadcast over the
+        wrong lanes."""
+        la, lb = getattr(a, "lanes", None), getattr(b, "lanes", None)
+        if la == lb:
+            return a if a.data.ndim >= b.data.ndim else b
+        shard, other = (a, b) if la is not None else (b, a)
+        if getattr(other, "lanes", None) is not None or (
+                other.data.ndim == 4 and other.data.shape[0] != 1):
+            raise ValueError(f"a batch held sharded ({_lane_text(shard)}) pairs only with "
+                             f"the same lanes or a singleton, not {_lane_text(other)}")
+        return shard
 
     @staticmethod
     def pack_noises(noises: list) -> "float | np.ndarray":
@@ -225,11 +274,21 @@ class BFVContext:
                                self.params)
 
     def unstack_cts(self, batch: CiphertextBatch) -> list:
+        _whole(batch, "unstack")
         per = batch.noise if np.ndim(batch.noise) else None
         return [Ciphertext(batch.data[i],
                            float(per[i]) if per is not None else batch.noise,
                            self.params)
                 for i in range(batch.nblocks)]
+
+    @staticmethod
+    def gather_lanes(batch: CiphertextBatch) -> CiphertextBatch:
+        """A batch held sharded as the whole batch, on every rank (an
+        all-gather of the lanes over "data"); any other batch as it is."""
+        if batch.lanes is None:
+            return batch
+        data = gather_axis(batch.data, batch.lanes.mesh, "data", dim=0)
+        return dataclasses.replace(batch, data=data, lanes=None)
 
     # ------------------------------------------------------------- sampling
     def _sample_uniform_ntt(self) -> torch.Tensor:
@@ -425,6 +484,7 @@ class BFVContext:
         key-switch all-gathers its decomposition digits over the mesh
         "model" axis (`kswitch_gathered`) — the same bytes, a different
         collective structure."""
+        out = self._pick(a, b)
         if mesh is None:
             data = self._mul_impl(a.data, b.data, rlk.b, rlk.a)
         else:
@@ -433,8 +493,7 @@ class BFVContext:
             q = self.qQ[:, None]
             data = torch.stack([(r0 + ks0) % q, (r1 + ks1) % q], dim=-3)
         nz = self.noise_model
-        return self._like(self._pick(a, b), data,
-                          nz.keyswitch(nz.mul(a.noise, b.noise)))
+        return self._like(out, data, nz.keyswitch(nz.mul(a.noise, b.noise)))
 
     def _mul_tensor_impl(self, da, db):
         """Steps 1-4 of the HPS multiply: the degree-2 tensor scaled back
@@ -493,30 +552,28 @@ class BFVContext:
         return lq.intt(acc_b), lq.intt(acc_a)
 
     def kswitch_gathered(self, poly, ksk: KSwitchKey, mesh):
-        """`_kswitch_inner` on a ("data", "model") device mesh.
+        """`_kswitch_inner` on a ("data", "model") device mesh, of the
+        lanes of `poly` this rank holds: those of a batch held sharded
+        over "data", or every lane where every rank holds them.  Its
+        "model" peers hold the same lanes, so nothing crosses "data".
 
-        Each rank takes its (kL = k/M)-limb slice of `poly` (and its
-        lanes of a batch whose size the data axis divides), centres its
+        Each rank takes its (kL = k/M)-limb slice of `poly`, centres its
         digits and all-gathers them along "model" — k*n int64 per block,
         the minimal cross-limb payload.  It then reduces the gathered
         digits mod its own primes, NTTs them with its slice's tables,
         multiplies by the key's output-limb slice (KSwitchKey axis 1),
         sums over the whole digit axis and INTTs; the outputs all-gather
-        back along "model" (and "data") into the replicated layout.
-        Exact int64 throughout, so the result is byte-identical to the
-        one-device path.  A rank outside the mesh computes that path."""
+        back along "model".  Exact int64 throughout, so the result is
+        byte-identical to the one-device path.  A rank outside the mesh
+        computes that path."""
         axes = mesh_axes(mesh)
         if mesh.get_coordinate() is None:
             return self._kswitch_inner(poly, ksk.b, ksk.a)
         k, n = self.params.k, self.params.n
-        M, D = axes.get("model", 1), axes.get("data", 1)
+        M = axes.get("model", 1)
         if k % M:
             raise ValueError(f"k={k} limbs do not split over a model axis of {M}")
-        B = math.prod(poly.shape[:-2])
-        p3 = poly.reshape(B, k, n)
-        if B > 1 and B % D == 0:           # lanes over "data"
-            per = B // D
-            p3 = p3[axis_index(mesh, "data") * per:][:per]
+        p3 = poly.reshape(-1, k, n)
         kl = k // M
         lo = axis_index(mesh, "model") * kl
         ops = self._limb_slice(lo, lo + kl)
@@ -530,8 +587,6 @@ class BFVContext:
             acc = torch.sum(ops.mul(d_ntt, key[:, lo:lo + kl]), dim=1) % ql[:, None]
             outs.append(ops.intt(acc))
         both = gather_axis(torch.stack(outs), mesh, "model", dim=2)   # (2, Bl, k, n)
-        if both.shape[1] != B:
-            both = gather_axis(both, mesh, "data", dim=1)
         return both[0].reshape(poly.shape), both[1].reshape(poly.shape)
 
     def _limb_slice(self, lo: int, hi: int) -> LimbLocalOps:
@@ -616,7 +671,9 @@ class BFVContext:
         sequential add chain exactly (mod-q sums commute); the noise
         bound replays the same sequential `add` recurrence.  Only the
         `live` lanes participate: shard padding lanes may hold garbage
-        after broadcasted single×batch ops and must never enter a sum."""
+        after broadcasted single×batch ops and must never enter a sum.
+        A batch held sharded is folded by `engine/sharded.sharded_fold`."""
+        _whole(batch, "fold_add")
         data = torch.sum(batch.data[:batch.nblocks], dim=0) % self.qQ[:, None]
         return Ciphertext(data, self.fold_noise(batch), self.params)
 

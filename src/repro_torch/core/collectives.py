@@ -4,10 +4,10 @@ The HE core (bfv.kswitch_gathered) and the query engine
 (engine/sharded.py) split work by rank through these helpers, and
 gradient compression (train/compression.compressed_psum) sums over them;
 the mesh factories live in launch/mesh.py.  The query engine runs one
-process per rank on replicated state (every rank holds every ciphertext
-and key); the scan step (launch/nshedb_step.query_step_sharded) holds
-only its shard.  A collective here is the only place where ranks
-exchange data.
+process per rank, each holding its lanes of every stacked batch and
+every key (`gather_axis` over "data" gathers a batch's lanes); the scan
+step (launch/nshedb_step.query_step_sharded) holds only its shard.  A
+collective here is the only place where ranks exchange data.
 
 Every helper adds the bytes of its result, by the kinds the JAX
 package's dry-run parses from HLO, to a per-process record

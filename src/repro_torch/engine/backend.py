@@ -33,10 +33,13 @@ is active on the backend, `stack_blocks` pads lane counts to a multiple
 of the shard count with zero blocks (`live` on the batch keeps stats,
 noise and decrypt on the logical count) and every charge is mirrored
 into the context's distributed/replicated cost ledger.  With a real
-device mesh attached the batch is placed on it and the block fold runs
-shard-local with an all-reduce over "data" (`sharded.sharded_fold`);
-key switches all-gather their digits over "model" (BFV only: the Mock
-backend keeps the mesh in the ledger layer).
+device mesh attached (BFV only: the Mock backend keeps the mesh in the
+ledger layer) a stacked batch is held sharded over "data": each rank
+stacks and computes only its own lanes (`sharded.place_batch`), the
+block fold runs shard-local with an all-reduce over "data"
+(`sharded.sharded_fold`), unstack, decrypt and refresh all-gather the
+lanes first, and key switches all-gather their digits over "model".
+Op counts, noise and the ledger stay on the global lane counts.
 
 Both count operations in OpStats and track (noise, depth) per value, so
 the planner's predictions are validated against the same model regardless
@@ -275,6 +278,14 @@ class _BackendBase:
 # Real-ciphertext backend.
 # ---------------------------------------------------------------------------
 
+def _own_lanes(data: torch.Tensor, batch: CiphertextBatch) -> torch.Tensor:
+    """Of a whole batch's `data`, the lanes `batch` holds (a copy when
+    it holds a shard, so the whole is freed)."""
+    if batch.lanes is None:
+        return data
+    return data[batch.lanes.lo:batch.lanes.hi].clone()
+
+
 class BFVBackend(_BackendBase):
     """Real RNS-BFV ciphertexts on `device`.
 
@@ -323,11 +334,13 @@ class BFVBackend(_BackendBase):
         into one batch of `x`'s shape.  Every chunk charges its lanes' op
         units and only the first its launches, so OpStats, noise, depth
         and the logs equal one pass's.  Runs whole: a single ciphertext, a
-        nested circuit, a shard context (its ledger counts calls) and a
-        noise model other than the context's (a fault injection's counts
-        calls).  A refresh inside a chunk undoes the chunks' charges and
-        the generator's draws and runs the batch whole: only a whole batch
-        refreshes, logs and re-encrypts as one pass does."""
+        nested circuit, a shard context (its ledger counts calls; on a
+        real mesh the batch is this rank's lanes, so its memory is
+        already divided by the "data" axis) and a noise model other than
+        the context's (a fault injection's counts calls).  A refresh
+        inside a chunk undoes the chunks' charges and the generator's
+        draws and runs the batch whole: only a whole batch refreshes,
+        logs and re-encrypts as one pass does."""
         if (not isinstance(x, CiphertextBatch) or x.live is not None or self._in_lanes
                 or self.shard_ctx is not None or self.model is not self.ctx.noise_model):
             return fn(x, slice(None))
@@ -398,29 +411,32 @@ class BFVBackend(_BackendBase):
 
         Under an active ShardContext the lane count is padded up to a
         multiple of the shard count with zero blocks (exact additive
-        identities; `live` keeps accounting on the logical count) and
-        the batch is placed on the mesh when a real one is attached —
-        uneven tables compile to one even launch."""
-        batch = self.ctx.stack_cts(blocks)
+        identities; `live` keeps accounting on the logical count) —
+        uneven tables compile to one even launch.  With a real mesh
+        attached the batch is held sharded: this rank stacks only its
+        own lanes and pads (`sharded.place_batch`)."""
         ctx = self.shard_ctx
-        if (ctx is not None and len(blocks) > 1
-                and (ctx.shards > 1 or ctx.limb_mesh is not None)):
-            from .sharded import pad_to, place_batch
+        if (ctx is None or len(blocks) <= 1
+                or (ctx.shards <= 1 and ctx.limb_mesh is None)):
+            batch = self.ctx.stack_cts(blocks)
+        else:
+            from .sharded import pad_to, place_batch, stack_lanes
             nphys = pad_to(len(blocks), ctx.shards)
-            data = batch.data
-            if nphys > len(blocks):
-                pad = torch.zeros_like(batch.data[:1])
-                data = torch.cat(
-                    [batch.data] + [pad] * (nphys - len(blocks)))
+            rows = [b.data for b in blocks]
             if ctx.mesh is not None:
-                data = place_batch(data, ctx.mesh)
-            batch = CiphertextBatch(data, batch.noise, batch.params,
-                                    live=len(blocks))
+                data, lanes = place_batch(rows, nphys, ctx.mesh)
+            else:
+                data, lanes = stack_lanes(rows, 0, nphys), None
+            batch = CiphertextBatch(data, self.ctx.pack_noises([b.noise for b in blocks]),
+                                    self.params, live=len(blocks), lanes=lanes)
         return self._set_d(batch, max(self._d(b) for b in blocks))
 
     def unstack_blocks(self, batch: CiphertextBatch) -> list:
+        """The batch's live lanes as single ciphertexts (all-gathered
+        first when it is held sharded: block lists are replicated)."""
         d = self._d(batch)
-        return [self._set_d(ct, d) for ct in self.ctx.unstack_cts(batch)]
+        return [self._set_d(ct, d)
+                for ct in self.ctx.unstack_cts(self.ctx.gather_lanes(batch))]
 
     def fold_blocks(self, batch: CiphertextBatch) -> Ciphertext:
         """Cross-block sum of a batch (the inter-block half of SUM/COUNT).
@@ -435,10 +451,17 @@ class BFVBackend(_BackendBase):
             # ledger: shard-local adds + one psum tree (record_fold owns
             # the split; stats.add above stays the sequential-fold charge)
             ctx.record_fold(batch.nblocks, self._nblocks_phys(batch))
-        if (ctx is not None and ctx.mesh is not None
+        if batch.lanes is not None:
+            mesh = batch.lanes.mesh
+        elif (ctx is not None and ctx.mesh is not None
                 and batch.nphys % ctx.shards == 0 and batch.nphys > 1):
+            mesh = ctx.mesh
+        else:
+            mesh = None
+        if mesh is not None:
             from .sharded import sharded_fold
-            data = sharded_fold(batch.data, batch.nblocks, ctx.mesh) % self.ctx.qQ[:, None]
+            data = (sharded_fold(batch.data, batch.nblocks, mesh, batch.lanes)
+                    % self.ctx.qQ[:, None])
             out = Ciphertext(data, self.ctx.fold_noise(batch), batch.params)
         else:
             out = self.ctx.fold_add(batch)
@@ -454,6 +477,8 @@ class BFVBackend(_BackendBase):
 
     def decrypt(self, ct) -> np.ndarray:
         self.stats.decrypt += self._nblocks(ct)
+        if isinstance(ct, CiphertextBatch):
+            ct = self.ctx.gather_lanes(ct)
         polys = self.ctx.decrypt(ct, self.keys.sk).cpu().numpy()
         if isinstance(ct, CiphertextBatch):
             # live lanes only: shard padding never reaches the client
@@ -467,27 +492,31 @@ class BFVBackend(_BackendBase):
         return self.encrypt(self.decrypt(ct))
 
     def refresh_inplace(self, ct, lanes: list | None = None) -> None:
+        """Re-encrypt `ct` in place: the batch lanes `lanes` (global lane
+        ids), or every live lane of it when None.  A batch held sharded
+        is all-gathered first and every rank refreshes every such lane in
+        the same order, so the seeded generator stays in step on all
+        ranks; each then keeps only its own lanes."""
         if isinstance(ct, CiphertextBatch):
+            whole = self.ctx.gather_lanes(ct)
             if lanes is not None:
                 # partial: refresh only the exhausted lanes of the batch
                 per = (np.asarray(ct.noise, dtype=np.float64).copy()
                        if np.ndim(ct.noise)
                        else np.full(ct.nblocks, float(ct.noise)))
-                data = ct.data.clone()    # handles alias: never edit in place
+                data = whole.data.clone()    # handles alias: never edit in place
                 for i in lanes:
-                    fb = self.refresh(Ciphertext(ct.data[i], float(per[i]),
+                    fb = self.refresh(Ciphertext(whole.data[i], float(per[i]),
                                                  self.params))
                     data[i] = fb.data
                     per[i] = fb.noise
-                ct.data, ct.noise = data, self.ctx.pack_noises(list(per))
+                ct.data, ct.noise = _own_lanes(data, ct), self.ctx.pack_noises(list(per))
                 return  # depth unchanged: un-refreshed lanes keep history
-            fresh = [self.refresh(b) for b in self.ctx.unstack_cts(ct)]
-            batch = self.ctx.stack_cts(fresh)
+            batch = self.ctx.stack_cts([self.refresh(b) for b in self.ctx.unstack_cts(whole)])
+            data = batch.data
             if ct.nphys > batch.nphys:  # padded: keep the zero pad lanes
-                ct.data = torch.cat([batch.data, ct.data[batch.nphys:]])
-                ct.noise = batch.noise
-            else:
-                ct.data, ct.noise = batch.data, batch.noise
+                data = torch.cat([data, whole.data[batch.nphys:]])
+            ct.data, ct.noise = _own_lanes(data, ct), batch.noise
         else:
             fresh = self.refresh(ct)
             ct.data = fresh.data
@@ -533,10 +562,14 @@ class BFVBackend(_BackendBase):
         arr = np.asarray(vec, dtype=np.int64) % self.t
         if arr.ndim == 2:
             # per-block plaintexts against a batch (fused broadcast_slot):
-            # zero rows cover any shard padding lanes
+            # zero rows cover any shard padding lanes; a batch held
+            # sharded takes (and encodes) only its own lanes' rows
             nphys = self._nblocks_phys(a)
             rows = np.zeros((nphys, self.slots), dtype=np.int64)
             rows[: arr.shape[0], : arr.shape[1]] = arr
+            held = getattr(a, "lanes", None)
+            if held is not None:
+                rows = rows[held.lo:held.hi]
             poly = np.stack([self.enc.encode(r) for r in rows])
         else:
             poly = self.enc.encode(arr)

@@ -43,13 +43,20 @@ This module owns the runtime plumbing:
   `make_shard_context("auto")` when a torch.distributed process group
   has at least shards x limb_shards ranks; without one the context is
   logical (padding + ledger on the backend's one device).  Every rank
-  runs the same program on replicated state — the same seed gives every
-  rank the same keys and ciphertexts — and charges the same ledger, so
-  a rank's `ledger_snapshot()` equals the logical context's but for its
-  `real_mesh` flag.  Only the collective sections split work by rank:
-  `sharded_fold` (a weighted sum of this rank's block lanes, then an
-  all-reduce over "data") and the key switch's digit all-gather over
-  "model" (core/bfv.py: kswitch_gathered).
+  runs the same program — the same seed gives every rank the same keys
+  and the same block lists — and charges the same ledger, so a rank's
+  `ledger_snapshot()` equals the logical context's but for its
+  `real_mesh` flag.  A batch stacked on the mesh is held sharded over
+  "data" (`place_batch`, as the reference's `batch_sharding` places
+  it): each rank stacks, holds and computes only its `nphys / D` lanes,
+  every limb of them.  Ranks exchange lanes only where the reference's
+  partitioning does: `sharded_fold` (a weighted sum of this rank's
+  lanes, then an all-reduce over "data"), the lane all-gather before a
+  batch is unstacked, decrypted or refreshed (BFVBackend), and the key
+  switch's digit all-gather over "model" among the ranks that hold the
+  same lanes (core/bfv.py: kswitch_gathered).  Keys, singletons and the
+  engine's block lists stay replicated.  A rank outside the mesh holds
+  whole batches and computes the one-device path.
 
 Parity contract: padding lanes (block or limb) are exact additive
 identities, `_count`/`_nblocks` keep returning *live* lane counts, and
@@ -64,6 +71,7 @@ import math
 
 import torch
 
+from ..core.bfv import LaneShard
 from ..core.collectives import axis_index, mesh_axes, sum_axis, visible_ranks
 from ..launch.mesh import make_query_mesh, make_scan_mesh
 from ..runtime.elastic import elastic_limb_plan, elastic_scan_plan
@@ -346,42 +354,60 @@ def batch_sharding(mesh) -> tuple:
     return ("data", None, "model" if "model" in mesh_axes(mesh) else None, None)
 
 
-def place_batch(data, mesh):
-    """A (nblocks, 2, k, n) batch placed on the query mesh.  Every rank
-    holds the whole batch (replicated state, see the module docstring);
-    the collective sections take this rank's lanes and limbs of it.  So
-    this checks that each dimension splits evenly over its axes of
-    `batch_sharding(mesh)` and that the batch lies where the mesh does,
-    and returns it unchanged."""
+def stack_lanes(rows: list, lo: int, hi: int) -> torch.Tensor:
+    """Lanes [lo, hi) of the batch whose lanes are `rows` ((2, k, n)
+    tensors) followed by zero pads, stacked: only these lanes, pads
+    included, are ever materialised."""
+    own = rows[lo:hi]
+    return torch.stack(own + [torch.zeros_like(rows[0])] * (hi - lo - len(own)))
+
+
+def place_batch(rows: list, nphys: int, mesh) -> tuple[torch.Tensor, LaneShard | None]:
+    """This rank's lanes of the (nphys, 2, k, n) batch whose lanes are
+    `rows` then zero pads, placed on the query mesh as
+    `batch_sharding(mesh)` says: lanes over "data".  Limbs stay whole on
+    every rank (the key switch splits them over "model" itself).  Raises
+    when a dimension does not split evenly over its axis, or when the
+    rows lie on another device type than the mesh.  Returns (data,
+    lanes): a `LaneShard` with this rank's `nphys / D` lanes, or None and
+    every lane where the rank keeps the whole batch (outside the mesh,
+    or a "data" axis of one rank)."""
     sizes = mesh_axes(mesh)
-    for dim, axis in zip(data.shape, batch_sharding(mesh)):
+    shape = (nphys, *rows[0].shape)
+    for dim, axis in zip(shape, batch_sharding(mesh)):
         if axis is not None and dim % sizes[axis]:
-            raise ValueError(f"batch {tuple(data.shape)} does not split over "
+            raise ValueError(f"batch {shape} does not split over "
                              f"the {axis!r} axis of {sizes[axis]} (pad first)")
-    if data.device.type != mesh.device_type:
-        raise ValueError(f"batch on {data.device} but the mesh on "
+    if rows[0].device.type != mesh.device_type:
+        raise ValueError(f"batch on {rows[0].device} but the mesh on "
                          f"{mesh.device_type}")
-    return data
+    D = sizes.get("data", 1)
+    if D == 1 or mesh.get_coordinate() is None:
+        return stack_lanes(rows, 0, nphys), None
+    per = nphys // D
+    lo = axis_index(mesh, "data") * per
+    return stack_lanes(rows, lo, lo + per), LaneShard(lo, lo + per, nphys, mesh)
 
 
-def _fold_psum(data, weights, mesh):
-    """This rank's block lanes, weighted, summed; then summed over "data"
-    (limbs stay whole on every rank).  A rank outside the mesh sums every
-    lane itself."""
-    if mesh.get_coordinate() is None:
-        return (data * weights[:, None, None, None]).sum(0)
-    per = data.shape[0] // mesh_axes(mesh).get("data", 1)
-    lanes = slice(axis_index(mesh, "data") * per, (axis_index(mesh, "data") + 1) * per)
-    local = (data[lanes] * weights[lanes, None, None, None]).sum(0)
-    return sum_axis(local, mesh, "data")
-
-
-def sharded_fold(data, live: int, mesh):
-    """Fold a padded (nphys, 2, k, n) batch: shard-local weighted sum,
-    then an all-reduce over the "data" axis.  Pad lanes are excluded with
-    a 0/1 lane-weight vector.  Returns the raw (2, k, n) sum — the caller
-    reduces mod q (residues are < 2^30, so even ~190 int64 partial sums
-    cannot overflow before the reduction)."""
-    nphys = data.shape[0]
-    weights = (torch.arange(nphys, device=data.device) < live).to(data.dtype)
-    return _fold_psum(data, weights, mesh)
+def sharded_fold(data, live: int, mesh, lanes: LaneShard | None = None):
+    """Fold a padded batch over the "data" axis: this rank's lanes,
+    weighted by 0/1 so that the pads (global lanes >= `live`) drop out,
+    summed, then all-reduced over "data"; limbs stay whole on every
+    rank.  `data` is this rank's lanes of a batch held sharded when
+    `lanes` is given, else the whole (nphys, 2, k, n) batch, of which
+    each rank sums its own lanes (a rank outside the mesh sums every
+    lane itself).  Returns the raw (2, k, n) sum — the caller reduces
+    mod q (residues are < 2^30, so even ~190 int64 partial sums cannot
+    overflow before the reduction)."""
+    outside = mesh.get_coordinate() is None
+    if lanes is not None:
+        lo = lanes.lo
+    elif outside:
+        lo = 0
+    else:
+        per = data.shape[0] // mesh_axes(mesh).get("data", 1)
+        lo = axis_index(mesh, "data") * per
+        data = data[lo:lo + per]
+    weights = (torch.arange(lo, lo + data.shape[0], device=data.device) < live).to(data.dtype)
+    local = (data * weights[:, None, None, None]).sum(0)
+    return local if outside else sum_axis(local, mesh, "data")

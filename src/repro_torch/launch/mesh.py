@@ -67,10 +67,11 @@ def make_scan_mesh(shards: int, device=None):
 
 
 def make_query_mesh(data: int, model: int, device=None):
-    """2-D ("data", "model") mesh for sharded query execution: block lanes
-    over "data", the k RNS limbs of every (nblocks, 2, k, n) batch over
-    "model", so only the key-switch digit all-gather crosses it
-    (engine/sharded.py, core/bfv.py: kswitch_gathered)."""
+    """2-D ("data", "model") mesh for sharded query execution: the block
+    lanes of every (nblocks, 2, k, n) batch held over "data"
+    (engine/sharded.place_batch), the key switch's k RNS limbs split over
+    "model", so only its digit and output all-gathers cross that axis
+    (core/bfv.py: kswitch_gathered)."""
     return _device_mesh((data, model), ("data", "model"), device)
 
 

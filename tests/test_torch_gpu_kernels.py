@@ -16,8 +16,9 @@ card equal the unsharded run on the card, and checkpoints of CUDA
 tensors restore onto the card byte for byte.  The encrypted-scan step
 (`launch/nshedb_step.py`) on the card equals a plain int64 contraction
 and its CPU run; a 2-rank gloo mesh with CUDA tensors folds and
-key-switches BFV micro ciphertexts as one device does, and runs the
-scan step sharded over it as one device does; TPC-H Q14's
+key-switches BFV micro ciphertexts as one device does, computes on BFV
+batches held sharded over it (each rank its own lanes) as one device
+does, and runs the scan step sharded over it as one device does; TPC-H Q14's
 legacy body on the card equals its CPU run and the oracle.  The CPU tests of the same
 modules hold the plain versions against the JAX package.
 """
@@ -53,7 +54,7 @@ from repro_torch.runtime.checkpoint import CheckpointManager  # noqa: E402
 from torch_cases import (bfv_shard_db, bfv_shard_oracle, bfv_shard_plans, engine_mods,  # noqa: E402
                          lane_chunk_run, legacy_query_run, planted_rows, qkv_arrays,
                          sharded_run, sum_slots_run)
-from torch_mesh_ranks import Ranks, scan_inputs  # noqa: E402
+from torch_mesh_ranks import BATCH_KEYS, MICRO, Ranks, batch_ops_run, scan_inputs  # noqa: E402
 
 T = 65537
 FLASH_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
@@ -393,6 +394,23 @@ def test_cuda_gloo_mesh_folds_and_key_switches(cuda_device, tmp_path):
         assert got["mesh"] == {"device_type": "cuda", "axes": ("data",), "shape": (2,)}
         np.testing.assert_array_equal(got["got"], got["base"])
         np.testing.assert_array_equal(got["got"], np.sum(got["vecs"], axis=0) % got["t"])
+
+
+@pytest.mark.gpu
+def test_cuda_gloo_batches_held_sharded(cuda_device, tmp_path):
+    """Two gloo ranks holding CUDA tensors, a BFV micro batch of 3 blocks
+    (4 lanes) held sharded over a ("data",) mesh of 2, 2 lanes a rank:
+    add, sub, mul_scalar, mul, rotate, sum_slots, a per-lane mul_plain,
+    fold, unstack and decrypt (`batch_ops_run`) give every rank the
+    residues, noise, decrypts and OpStats of the same calls on one
+    device, the card."""
+    exp = batch_ops_run(tbackend.BFVBackend(make_params(**MICRO), seed=11, device="cuda"))
+    for got in Ranks(2, ["batch_ops"], tmp_path, device="cuda").results()["batch_ops"]:
+        assert got["mesh"] == {"device_type": "cuda", "axes": ("data",), "shape": (2,)}
+        assert got["nphys"] == 4 and got["held"] == [2, 2] and exp["held"] == [3, 3]
+        for key in BATCH_KEYS:
+            np.testing.assert_array_equal(got[key], exp[key], err_msg=key)
+        assert got["stats"] == exp["stats"]
 
 
 @pytest.mark.gpu

@@ -5,12 +5,14 @@ here in `gloo` ranks on the CPU (tests/torch_mesh_ranks.py).
 
 Each mesh shape's ranks start once per module and run all its cases: two
 ranks (a ("data",) scan mesh of 2, a (1, 2) query mesh) and four (a
-(2, 2) query mesh).  Every rank runs the same program on replicated
-state; its decrypts and `OpStats` must equal the JAX package's unsharded
-run (tolerance 0), its `ExecReport` and ledger snapshot the port's
-logical context at the same cell (compared with `==`, the ledger's
-`real_mesh` flag aside).  The JAX runs and the logical ones run here, in
-the parent, where no process group exists.
+(2, 2) query mesh).  Every rank runs the same program, holding only its
+own lanes of every batch stacked on a mesh with a "data" axis of 2; its
+gathered residues, decrypts and `OpStats` must equal the JAX package's
+unsharded run (tolerance 0), its `ExecReport` and ledger snapshot the
+port's logical context at the same cell (compared with `==`, the
+ledger's `real_mesh` flag aside).  The JAX runs, the port's one-device
+runs and the logical ones run here, in the parent, where no process
+group exists.
 """
 import numpy as np
 import pytest
@@ -43,7 +45,8 @@ from repro_torch.launch import dryrun
 from repro_torch.launch import mesh as tmesh
 
 from torch_cases import bfv_shard_db, bfv_shard_oracle, bfv_shard_plans, sharded_run
-from torch_mesh_ranks import MICRO, Ranks, compressed_psum_expected
+from torch_mesh_ranks import (BATCH_KEYS, MICRO, REFRESH_KEYS, Ranks, batch_ops_run,
+                              compressed_psum_expected, refresh_run)
 
 JAX = dict(backend=jbackend, executor=jexecutor, plan=jplan, planner=jplanner,
            queries=jqueries, schema=jschema, sharded=jsharded, storage=jstorage, tpch=jtpch)
@@ -68,9 +71,10 @@ def started(tmp_path_factory):
     """Two and four gloo ranks, started before the reference runs so that
     both proceed together."""
     started = {2: Ranks(2, ["fold", "bfv_fold", "mock_q1", "bfv_1x2", "auto", "kswitch",
-                            "compressed_psum"],
+                            "compressed_psum", "batch_ops", "refresh_lanes"],
                         tmp_path_factory.mktemp("mesh2")),
-               4: Ranks(4, ["bfv_2x2", "auto", "kswitch"], tmp_path_factory.mktemp("mesh4"))}
+               4: Ranks(4, ["bfv_2x2", "auto", "kswitch", "batch_ops", "refresh_lanes"],
+                        tmp_path_factory.mktemp("mesh4"))}
     yield started
     for group in started.values():
         group.close()
@@ -91,10 +95,17 @@ def bfv_reference(started):
     tdb, _, _ = bfv_shard_db(PORT, tbackend.BFVBackend(make_params(**MICRO), seed=11,
                                                        device="cpu"))
     jplans, tplans = bfv_shard_plans(jplan), bfv_shard_plans(tplan)
-    return {"jax": {p: sharded_run(JAX, jdb, jplans[p], None) for p in PLANS},
-            "logical": {(p, c): sharded_run(PORT, tdb, tplans[p], c)
-                        for p in PLANS for c in MESH_CELLS},
-            "oracle": {p: bfv_shard_oracle(p, data, pdata) for p in PLANS}}
+    out = {"jax": {p: sharded_run(JAX, jdb, jplans[p], None) for p in PLANS},
+           "logical": {(p, c): sharded_run(PORT, tdb, tplans[p], c)
+                       for p in PLANS for c in MESH_CELLS},
+           "oracle": {p: bfv_shard_oracle(p, data, pdata) for p in PLANS}}
+    # the batch cases' one-device runs, each on fresh keys (seed 11)
+    for case, run in (("batch_ops", batch_ops_run), ("refresh_lanes", refresh_run)):
+        out[case] = {
+            "jax": run(jbackend.BFVBackend(jax_make_params(**MICRO), seed=11,
+                                           kernel_backend="ref")),
+            "port": run(tbackend.BFVBackend(make_params(**MICRO), seed=11, device="cpu"))}
+    return out
 
 
 def _ledger_as_logical(led):
@@ -128,7 +139,7 @@ def test_compressed_psum_matches_numpy(ranks):
 def test_bfv_fold_on_real_mesh_parity(ranks):
     for res in ranks[2]["bfv_fold"]:
         assert res["mesh"] == {"device_type": "cpu", "axes": ("data",), "shape": (2,)}
-        assert res["nphys"] == 4 and res["nblocks"] == 3
+        assert res["nphys"] == 4 and res["nblocks"] == 3 and res["held"] == 2
         np.testing.assert_array_equal(res["got"], res["base"])
         np.testing.assert_array_equal(res["got"], np.sum(res["vecs"], axis=0) % res["t"])
 
@@ -168,15 +179,67 @@ def test_bfv_micro_2d_parity(ranks, bfv_reference, pname, cell):
         assert run["report"] == logical["report"]
         assert _ledger_as_logical(run["ledger"]) == logical["ledger"]
         assert run["ledger"]["gathers"] > 0 and run["ledger"]["gather_bytes"] > 0
+        # a batch of many lanes is held nphys / D lanes a rank ("data" of D)
+        assert any(nphys > 1 for nphys, _ in run["stacked"])
+        assert all(held == (nphys // cell[0] if nphys > 1 else 1)
+                   for nphys, held in run["stacked"]), run["stacked"]
 
 
 def test_kswitch_gathered_equals_one_device(ranks):
-    """A 4-lane batch (lanes over "data" on the 2 x 2 mesh), a single
-    polynomial (replicated over "data") and `sharded_fold` of 3 live
-    lanes, each against the one-device arithmetic."""
+    """A 4-lane batch and a single polynomial that every rank holds (limbs
+    split over "model"), and `sharded_fold` of 3 live lanes (this rank's
+    lanes summed, then over "data"), each against the one-device
+    arithmetic."""
     for world in (2, 4):
         for res in ranks[world]["kswitch"]:
             assert res == {"batch": True, "single": True, "fold": True}
+
+
+MESH_OF = {2: {"device_type": "cpu", "axes": ("data",), "shape": (2,)},
+           4: {"device_type": "cpu", "axes": ("data", "model"), "shape": (2, 2)}}
+
+
+def _equal_runs(got, exp, keys):
+    for key in keys:
+        np.testing.assert_array_equal(got[key], exp[key], err_msg=key)
+    assert got["stats"] == exp["stats"]
+
+
+@pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("case", ["batch_ops", "refresh_lanes"])
+def test_batches_held_sharded_equal_one_device(ranks, bfv_reference, case, world):
+    """A 3-block BFV micro batch (4 lanes) held sharded on a ("data",) 2
+    and a (2, 2) mesh, 2 lanes a rank.  `batch_ops`: add, sub of a single
+    ciphertext, mul_scalar, mul, rotate, sum_slots and a per-lane
+    mul_plain, then fold, unstack and decrypt; `refresh_lanes`:
+    `refresh_inplace` on the global lanes [0, 2] and on every lane.
+    Every rank's gathered residues, noise, decrypts and OpStats equal the
+    JAX package's and the port's one-device run bit for bit, and so do
+    the residues of the next encryption after the refreshes."""
+    ref = bfv_reference[case]
+    keys = BATCH_KEYS if case == "batch_ops" else REFRESH_KEYS
+    if case == "refresh_lanes":
+        assert np.ndim(ref["jax"]["lanes_noise"]) == 1      # lanes 0, 2 fresh, 1 not
+    _equal_runs(ref["port"], ref["jax"], keys)
+    for res in ranks[world][case]:
+        _equal_runs(res, ref["jax"], keys)
+        if case == "batch_ops":
+            assert res["mesh"] == MESH_OF[world]
+            assert res["nphys"] == 4 and res["held"] == [2, 2]
+        else:
+            assert res["lanes_held"] == res["whole_held"] == 2
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_sharded_batch_refuses_other_lanes(ranks, world):
+    """A batch held sharded raises against a whole batch of as many
+    lanes and against a batch holding other lanes, and unstack_cts /
+    fold_add refuse it until it is gathered."""
+    for res in ranks[world]["batch_ops"]:
+        msgs = res["refused"]
+        assert "not a whole batch of 4 lanes" in msgs["whole_pair"]
+        assert "not lanes [" in msgs["other_lanes"] and "of 4" in msgs["other_lanes"]
+        assert all("gather them first" in msgs[k] for k in ("unstack_cts", "fold_add"))
 
 
 def _desc(axes, shape):

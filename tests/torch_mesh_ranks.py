@@ -1,9 +1,10 @@
 """Rank processes for the port's mesh tests: `Ranks` starts `world`
 processes that join one `gloo` process group (a `file://` rendezvous in
 a directory of the caller's, so concurrent test workers never collide),
-run named cases and hand their results back.  The query engine's cases
-run on replicated state; the scan step's (`case_scan_step`) holds only
-each rank's shard.
+run named cases and hand their results back.  Every rank runs the same
+program: a batch the query engine stacks on a mesh is held sharded over
+its "data" axis (each rank holds its own lanes), and the scan step
+(`case_scan_step`) holds only each rank's shard.
 
 Imports numpy and torch at the top and the port inside the ranks (no
 JAX), so the card's tests (tests/test_torch_gpu_kernels.py) use it too;
@@ -51,13 +52,24 @@ def _bfv_micro_db(device):
 
 def _bfv_micro_runs(device, cells):
     """g1 / j1 / f1 of `torch_cases.bfv_shard_plans` through the executor
-    at each (shards, limb_shards) cell, with the mesh "auto" attaches."""
+    at each (shards, limb_shards) cell, with the mesh "auto" attaches;
+    each run's `stacked` lists the (global, held) lane counts of every
+    batch it stacked."""
     from torch_cases import bfv_shard_plans, sharded_run
     mods, (db, _, _) = _bfv_micro_db(device)
+    stack, stacked = db.bk.stack_blocks, set()
+
+    def recording(blocks):
+        batch = stack(blocks)
+        stacked.add((batch.nphys, int(batch.data.shape[0])))
+        return batch
+
+    db.bk.stack_blocks = recording
     out = {}
     for cell in cells:
         for pname, plan in bfv_shard_plans(mods["plan"]).items():
-            out[(pname, cell)] = sharded_run(mods, db, plan, cell)
+            stacked.clear()
+            out[(pname, cell)] = dict(sharded_run(mods, db, plan, cell), stacked=sorted(stacked))
     return out
 
 
@@ -85,7 +97,128 @@ def case_bfv_fold(device):
         batch = bk.stack_blocks([bk.encrypt(v) for v in vecs])
         got = bk.decrypt(bk.fold_blocks(batch))
     return {"vecs": vecs, "base": base, "got": got, "t": bk.t, "mesh": _mesh_desc(ctx.mesh),
-            "nphys": batch.nphys, "nblocks": batch.nblocks}
+            "nphys": batch.nphys, "nblocks": batch.nblocks, "held": int(batch.data.shape[0])}
+
+
+BATCH_BLOCKS = 3           # a column of 3 blocks: 4 lanes on a "data" axis of 2
+BATCH_OPS = ("add", "sub", "mul_scalar", "mul", "rotate", "sum_slots", "mul_plain")
+# what `batch_ops_run` and `refresh_run` hand back to compare (beside "stats")
+BATCH_KEYS = tuple(k for op in BATCH_OPS for k in (op, op + "_noise")) + ("fold", "decrypt")
+REFRESH_KEYS = tuple(k + sfx for k in ("lanes", "whole") for sfx in ("", "_noise", "_decrypt")
+                     ) + ("next",)
+
+
+def _residues(ct) -> np.ndarray:
+    """A ciphertext's residues as numpy, from either package."""
+    return ct.data.cpu().numpy() if isinstance(ct.data, torch.Tensor) else np.asarray(ct.data)
+
+
+def batch_ops_run(bk, ctx=None, activate=None) -> dict:
+    """The query engine's batched calls on a `BATCH_BLOCKS`-block batch of
+    `bk` (either package's BFVBackend), under shard context `ctx`
+    (entered with `activate`, the port's `sharded.activate`) or none:
+    add, sub of a single ciphertext, mul_scalar, mul, rotate, sum_slots
+    and a per-lane mul_plain, each result's live lanes' residues through
+    `unstack_blocks` and its noise; the fold of the product, the decrypt
+    of the slot sum, the OpStats; the global and held lane counts."""
+    import contextlib
+    import dataclasses
+    cts = [bk.encrypt(np.arange(bk.slots) % 7 + i) for i in range(BATCH_BLOCKS)]
+    single = bk.encrypt(np.arange(bk.slots) % 5)
+    basis = np.zeros((BATCH_BLOCKS, bk.slots), dtype=np.int64)
+    basis[np.arange(BATCH_BLOCKS), [1, 4, 9]] = 1
+    bk.stats.reset()
+    out = {}
+    with activate(bk, ctx) if ctx is not None else contextlib.nullcontext():
+        x, y = bk.stack_blocks(cts), bk.stack_blocks(cts[::-1])
+        out["nphys"], out["held"] = x.nphys, [int(b.data.shape[0]) for b in (x, y)]
+        res = {"add": bk.add(x, y), "sub": bk.sub(x, single), "mul_scalar": bk.mul_scalar(x, 3),
+               "mul": bk.mul(x, y), "rotate": bk.rotate(x, 3), "sum_slots": bk.sum_slots(x),
+               "mul_plain": bk.mul_plain(x, basis)}
+        for name in BATCH_OPS:
+            out[name] = np.stack([_residues(c) for c in bk.unstack_blocks(res[name])])
+            out[name + "_noise"] = np.asarray(res[name].noise)
+        out["fold"] = _residues(bk.fold_blocks(res["mul"]))
+        out["decrypt"] = bk.decrypt(res["sum_slots"])
+    out["stats"] = dataclasses.asdict(bk.stats)
+    return out
+
+
+def refresh_run(bk, ctx=None, activate=None) -> dict:
+    """`refresh_inplace` of a `BATCH_BLOCKS`-block batch of `bk` (times 3,
+    so that its noise is no longer fresh) on the global lanes [0, 2], and
+    of every lane of a second one, under shard context `ctx` or none:
+    each batch's live residues, noise and decrypts after, the lanes each
+    holds, and the residues of the next encryption (equal only if the
+    seeded generator drew the same as on one device)."""
+    import contextlib
+    import dataclasses
+    cts = [bk.encrypt(np.arange(bk.slots) % 7 + i) for i in range(BATCH_BLOCKS)]
+    bk.stats.reset()
+    out = {}
+    with activate(bk, ctx) if ctx is not None else contextlib.nullcontext():
+        for name, blocks, lanes in (("lanes", cts, [0, 2]), ("whole", cts[::-1], None)):
+            batch = bk.mul_scalar(bk.stack_blocks(blocks), 3)
+            bk.refresh_inplace(batch, lanes)
+            out[name] = np.stack([_residues(c) for c in bk.unstack_blocks(batch)])
+            out[name + "_noise"] = np.asarray(batch.noise)
+            out[name + "_decrypt"] = bk.decrypt(batch)
+            out[name + "_held"] = int(batch.data.shape[0])
+    out["next"] = _residues(bk.encrypt(np.arange(bk.slots) % 3))
+    out["stats"] = dataclasses.asdict(bk.stats)
+    return out
+
+
+def _batch_backend(device, world):
+    """A BFV micro backend (seed 11, as the JAX reference's) and the shard
+    context the batch cases run under: shards=2 on a ("data",) mesh of 2
+    ranks, 2 x 2 ("data", "model") on 4."""
+    from repro_torch.core.params import make_params
+    mods = _port_mods()
+    bk = mods["backend"].BFVBackend(make_params(**MICRO), seed=11, device=device)
+    limb_shards = 1 if world == 2 else 2
+    ctx = mods["sharded"].make_shard_context(2, limb_shards=limb_shards, limbs=MICRO["k"],
+                                             ring_n=MICRO["n"], device=bk.device)
+    return mods, bk, ctx
+
+
+def _refused(bk, ctx, activate) -> dict:
+    """What a sharded batch refuses: a whole batch of as many lanes, a
+    batch holding other lanes (5 blocks: 6 lanes), and unstack_cts /
+    fold_add without a gather first; each ValueError's message."""
+    cts = [bk.encrypt(np.arange(bk.slots) % 7 + i) for i in range(5)]
+    out = {}
+    with activate(bk, ctx):
+        x = bk.stack_blocks(cts[:BATCH_BLOCKS])
+        calls = {"whole_pair": lambda: bk.ctx.add(x, bk.ctx.stack_cts(cts[:4])),
+                 "other_lanes": lambda: bk.ctx.mul(bk.stack_blocks(cts), x, bk.keys.rlk),
+                 "unstack_cts": lambda: bk.ctx.unstack_cts(x),
+                 "fold_add": lambda: bk.ctx.fold_add(x)}
+        for name, call in calls.items():
+            try:
+                call()
+                out[name] = None
+            except ValueError as e:
+                out[name] = str(e)
+    return out
+
+
+def case_batch_ops(device):
+    """`batch_ops_run` on this group's shard context (batches held
+    sharded), the mesh, and `_refused`."""
+    import torch.distributed as dist
+    mods, bk, ctx = _batch_backend(device, dist.get_world_size())
+    out = batch_ops_run(bk, ctx, mods["sharded"].activate)
+    out["mesh"] = _mesh_desc(ctx.mesh)
+    out["refused"] = _refused(bk, ctx, mods["sharded"].activate)
+    return out
+
+
+def case_refresh_lanes(device):
+    """`refresh_run` on this group's shard context."""
+    import torch.distributed as dist
+    mods, bk, ctx = _batch_backend(device, dist.get_world_size())
+    return refresh_run(bk, ctx, mods["sharded"].activate)
 
 
 def case_mock_q1(device):
@@ -133,9 +266,10 @@ def case_auto(device):
 
 
 def case_kswitch(device):
-    """`BFVContext.kswitch_gathered` of a 3-lane batch and a single
-    polynomial on this group's (data, model) mesh, and `sharded_fold` of
-    the batch, against the one-device key switch and sum."""
+    """`BFVContext.kswitch_gathered` of a 4-lane batch every rank holds
+    and of a single polynomial on this group's (data, model) mesh, and
+    `sharded_fold` of the batch, against the one-device key switch and
+    sum."""
     import torch.distributed as dist
     from repro_torch.core.bfv import BFVContext
     from repro_torch.core.params import make_params
@@ -252,7 +386,8 @@ def compressed_psum_expected(gs) -> np.ndarray:
 CASES = {fn.__name__[5:]: fn for fn in (case_fold, case_bfv_fold, case_mock_q1,
                                          case_bfv_1x2, case_bfv_2x2, case_auto,
                                          case_kswitch, case_compressed_psum,
-                                         case_scan_step)}
+                                         case_scan_step, case_batch_ops,
+                                         case_refresh_lanes)}
 
 
 def _rank_main(rank, world, work_dir, names, device):
