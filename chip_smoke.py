@@ -64,15 +64,17 @@ full width and depth, and its training path at starcoder2-3b's:
             versions;
   mesh      four ranks sharing the card over gloo (CUDA tensors) on a
             2 x 2 ("data", "model") mesh, each running Q1 at the paper's
-            parameters with every stacked batch held sharded over "data"
-            (Q1's one block stacks one fused 6-lane batch of its 5 EQ
-            atoms: 3 lanes a rank) and the key switches gathered over
-            "model", its ledger equal to a logical 2 x 2 context's; then
-            in the same ranks, at the same parameters, a 4-lane BFV batch
-            of 3 live blocks held sharded (2 lanes a rank) through mul,
-            rotate, fold, decrypt and a refresh of lanes 0 and 2, then
-            one more encryption, each against the same calls on one
-            device from the same generator state; then the
+            parameters with every stacked batch held over "data" and
+            "model" (Q1's one block stacks one fused 6-lane batch of its
+            5 EQ atoms: 3 lanes a rank, 15 of 30 limbs of them) and every
+            key switch key held by its 15-limb output slice, its ledger
+            equal to a logical 2 x 2 context's, its all-gather bytes to
+            the count; then in the same ranks, at the same parameters, a
+            4-lane BFV batch of 3 live blocks held so (2 lanes, 15 limbs a
+            rank) through mul, rotate, fold, decrypt and a refresh of
+            lanes 0 and 2, then one more encryption, each against the
+            same calls on one device from the same generator state (run
+            once, in the parent, with whole keys, beside the ranks); then the
             scan step on the mesh (`nshedb_step.query_step_sharded`) at
             `CONFIG` on 16 blocks, 8 a "data" rank and 16 limbs a "model"
             rank, each rank holding only its shard, in both key-switch
@@ -2107,38 +2109,56 @@ def _mesh_logical_ledger() -> dict:
 
 
 def _circuit_lanes(bk) -> list:
-    """(lanes held, lanes of the whole batch) of every stacked batch that
-    enters a circuit (`bk.map_lanes`) from now on, appended to the list
-    returned."""
+    """(lanes held, lanes of the whole batch, limbs held) of every stacked
+    batch that enters a circuit (`bk.map_lanes`) from now on, appended to
+    the list returned."""
     from repro_torch.core.bfv import CiphertextBatch
 
     seen, orig = [], bk.map_lanes
 
     def map_lanes(fn, x, *args):
         if isinstance(x, CiphertextBatch):
-            seen.append((int(x.data.shape[0]), x.nphys))
+            seen.append((int(x.data.shape[0]), x.nphys, int(x.data.shape[-2])))
         return orig(fn, x, *args)
 
     bk.map_lanes = map_lanes
     return seen
 
 
+# Q1's all-gather bytes a rank on the 2 x 2 mesh, counted from its plan
+# (30 limbs, n = 32768, int64): 1,453 singleton key switches each gather
+# their centred digits and both outputs over "model" (3 x 7,864,320 B);
+# the 16 squarings of the 6-lane EQ batch each gather their operand's
+# limbs (3 lanes x 2 x 30 limbs: 47,185,920 B) and no digits; its unstack
+# gathers 6 lanes of 15 limbs (47,185,920 B), then their limbs
+# (94,371,840 B)
+MESH_Q1_ALL_GATHER = 1453 * 3 * 7_864_320 + 16 * 47_185_920 + 47_185_920 + 94_371_840
+
+
+def _key_bytes(keys) -> int:
+    """Bytes of `rlk` and every Galois key a rank holds."""
+    return sum(t.numel() * t.element_size()
+               for key in (keys.rlk, *keys.gks.values()) for t in (key.b, key.a))
+
+
 def _mesh_q1(expect_stats) -> dict:
     """One rank's TPC-H Q1 at `paper_params()` on LINEITEM 32768 rows on
     a real ("data", "model") mesh (CUDA tensors, gloo): the same keys and
-    table in every rank (seeded), every stacked batch held sharded over
-    "data", key switches gathered over "model".  The table is one block:
-    Q1 stacks one fused 6-lane batch of its 5 EQ atoms (3 lanes a rank)
-    and folds nothing; `_mesh_data_axis` then drives the fold and the
-    other lane-crossing calls.  `expect_stats`: the unsharded run's
-    OpStats (None to skip).  The parent holds the ledger against a
-    logical 2 x 2 context's."""
+    table in every rank (seeded), every stacked batch held as its rank's
+    lanes over "data" and its limbs over "model", every key switch key
+    held by its output-limb slice from the first key switch on.  The
+    table is one block: Q1 stacks one fused 6-lane batch of its 5 EQ
+    atoms (3 lanes, 15 of 30 limbs a rank) and folds nothing;
+    `_mesh_data_axis` then drives the fold and the other lane-crossing
+    calls.  `expect_stats`: the unsharded run's OpStats (None to skip).
+    The parent holds the ledger against a logical 2 x 2 context's."""
     from repro_torch.core import collectives as C
     from repro_torch.core.params import paper_params
     from repro_torch.engine import queries
     from repro_torch.engine.planner import Planner
 
-    bk, db, secs = load_paper_lineitem(paper_params())
+    paper = paper_params()
+    bk, db, secs = load_paper_lineitem(paper)
     pl = Planner(db, optimized=True, shards=MESH_GRID[0], limb_shards=MESH_GRID[1])
     mesh = pl.shard_ctx.mesh
     lanes = _circuit_lanes(bk)
@@ -2147,6 +2167,8 @@ def _mesh_q1(expect_stats) -> dict:
     record = C.collective_record()
     ledger = pl.shard_ctx.ledger_snapshot()
     exp = queries.oracle_q1(db)
+    keys = [bk.keys.rlk, *bk.keys.gks.values()]
+    key_limbs = sorted({int(key.b.shape[1]) for key in keys})
     data_axis = _mesh_data_axis(bk, pl.shard_ctx)
     bad = []
     if mesh is None or pl.shard_ctx.limb_mesh is None or mesh.device_type != "cuda":
@@ -2157,68 +2179,129 @@ def _mesh_q1(expect_stats) -> dict:
         bad.append(f"OpStats {run['op_stats']} != unsharded {expect_stats}")
     if run["op_stats"]["refresh"] != 0 or not ledger["gather_bytes"] > 0:
         bad.append(f"refresh {run['op_stats']['refresh']}, gather bytes {ledger['gather_bytes']}")
-    batches = [(held, whole) for held, whole in lanes if whole > 1]
-    if not batches or any(held != whole // MESH_GRID[0] for held, whole in batches):
-        bad.append(f"circuit batches (held, whole lanes) {lanes}: not held over \"data\"")
+    batches = [b for b in lanes if b[1] > 1]
+    kl = paper.k // MESH_GRID[1]
+    if not batches or any(held != whole // MESH_GRID[0] or limbs != kl
+                          for held, whole, limbs in batches):
+        bad.append(f"circuit batches (held lanes, whole lanes, held limbs) {lanes}: not held "
+                   f"over \"data\" and \"model\"")
+    if key_limbs != [kl]:
+        bad.append(f"keys hold output limbs {key_limbs}, not {kl} of {paper.k}")
+    if record["all-gather"] != MESH_Q1_ALL_GATHER:
+        bad.append(f"all-gather bytes {record['all-gather']} != the count {MESH_Q1_ALL_GATHER}")
     bad += data_axis.pop("failures")
     return {"mesh": {"device_type": mesh.device_type, "shape": list(mesh.shape),
                      "axes": list(mesh.mesh_dim_names)} if mesh is not None else None,
             "keygen_s": round(secs["keygen"], 3), "load_encrypt_s": round(secs["load_encrypt"], 3),
             "query_s": run["query_s"], "stage_s": {k: round(v, 3) for k, v in run["secs"].items()},
             "equal_to_oracle": run["got"] == exp, "op_stats": run["op_stats"],
-            "circuit_lanes": {"held_max": max(h for h, _ in batches) if batches else None,
-                              "held_min": min(h for h, _ in batches) if batches else None,
-                              "whole": sorted({w for _, w in batches}),
+            "circuit_lanes": {"held_max": max(b[0] for b in batches) if batches else None,
+                              "held_min": min(b[0] for b in batches) if batches else None,
+                              "whole": sorted({b[1] for b in batches}),
                               "batches": len(batches)},
-            "collective_bytes": record,
+            "circuit_limbs": {"held": sorted({b[2] for b in batches}), "whole": paper.k},
+            "key_limbs": {"held": key_limbs, "whole": paper.k},
+            "key_bytes_held": _key_bytes(bk.keys),
+            "collective_bytes": record, "all_gather_count": MESH_Q1_ALL_GATHER,
             "ledger": ledger,
             "kernel_launches": run["launches"], "peak_device_bytes": run["peak_device_bytes"],
             "data_axis": data_axis, "failures": bad}
 
 
-def _mesh_data_axis(bk, shard_ctx) -> dict:
-    """Real ciphertexts held sharded over "data", at the paper's
-    parameters on the same mesh: 3 blocks stacked into a 4-lane batch (2
-    lanes a rank) through mul (the key switch on this rank's lanes, 15
-    limbs a "model" rank), rotate, fold_blocks (summed over "data"),
-    decrypt and `refresh_inplace` of the global lanes 0 and 2, then one
-    more encryption; and the same calls on one device (no shard context)
-    from the same generator state.  Every gathered residue, decrypt,
-    noise and the last encryption must be equal (the refresh re-encrypts
-    from the generator on every rank in the same order)."""
-    import hashlib
+# the data-axis calls start from this generator (a stated state, the
+# same in the ranks and in the parent's one-device run)
+MESH_DATA_SEED = SEED + 5
+MESH_DATA_EXPECT = os.path.join(MESH_DIR, "data_axis_expected.pt")
 
+
+def _data_axis_calls(bk, shard_ctx) -> dict:
+    """3 blocks encrypted from the generator at `MESH_DATA_SEED`, stacked
+    (under `shard_ctx`: 4 lanes held sharded) and put through mul,
+    rotate, fold_blocks, decrypt and `refresh_inplace` of the global lanes
+    0 and 2, then one more encryption: the gathered residues, decrypts
+    and noise on the host, and the lanes and limbs each batch held."""
     from repro_torch.engine.sharded import activate
 
-    start = bk.ctx.rng.bit_generator.state
+    bk.ctx.rng.bit_generator.state = np.random.default_rng(MESH_DATA_SEED).bit_generator.state
     vecs = [(np.arange(bk.slots) * (i + 3)) % 1000 for i in range(3)]
+    cts = [bk.encrypt(v) for v in vecs]
+    out = {}
+    with activate(bk, shard_ctx):
+        x = bk.stack_blocks(cts)
+        prod, rot = bk.mul(x, x), bk.rotate(x, 1)
+        out["held"] = [int(b.data.shape[0]) for b in (x, prod, rot)]
+        out["limbs"] = [int(b.data.shape[-2]) for b in (x, prod, rot)]
+        out["mul"] = torch.stack([c.data for c in bk.unstack_blocks(prod)]).cpu()
+        out["rotate"] = torch.stack([c.data for c in bk.unstack_blocks(rot)]).cpu()
+        out["fold"] = bk.fold_blocks(prod).data.cpu()
+        out["decrypt"] = bk.decrypt(rot)
+        bk.refresh_inplace(prod, [0, 2])
+        out["refreshed"] = torch.stack([c.data for c in bk.unstack_blocks(prod)]).cpu()
+        out["refreshed_decrypt"] = bk.decrypt(prod)
+        out["noise"] = np.asarray(prod.noise)
+    out["encrypt"] = bk.encrypt(vecs[0]).data.cpu()
+    return out
 
-    def calls(ctx):
-        bk.ctx.rng.bit_generator.state = start
-        cts = [bk.encrypt(v) for v in vecs]
-        out = {}
-        with activate(bk, ctx):
-            x = bk.stack_blocks(cts)
-            prod, rot = bk.mul(x, x), bk.rotate(x, 1)
-            out["held"] = [int(b.data.shape[0]) for b in (x, prod, rot)]
-            out["mul"] = torch.stack([c.data for c in bk.unstack_blocks(prod)])
-            out["rotate"] = torch.stack([c.data for c in bk.unstack_blocks(rot)])
-            out["fold"] = bk.fold_blocks(prod).data
-            out["decrypt"] = bk.decrypt(rot)
-            bk.refresh_inplace(prod, [0, 2])
-            out["refreshed"] = torch.stack([c.data for c in bk.unstack_blocks(prod)])
-            out["refreshed_decrypt"] = bk.decrypt(prod)
-            out["noise"] = np.asarray(prod.noise)
-        out["encrypt"] = bk.encrypt(vecs[0]).data
-        return out
+
+def _mesh_data_axis_expected() -> dict:
+    """In the parent, while the ranks run Q1: `_data_axis_calls` on one
+    device (the card, no shard context) with whole keys from the ranks'
+    seed, saved for the ranks to compare with; then freed."""
+    import hashlib
+
+    from repro_torch.core.params import paper_params
+    from repro_torch.engine.backend import BFVBackend
 
     t0 = clock()
-    sharded = calls(shard_ctx)
+    bk = BFVBackend(paper_params(), seed=SEED)
+    keygen_s = clock() - t0
+    t0 = clock()
+    out = _data_axis_calls(bk, None)
     secs = clock() - t0
-    one = calls(None)
+    torch.save(out, MESH_DATA_EXPECT + ".tmp")
+    os.replace(MESH_DATA_EXPECT + ".tmp", MESH_DATA_EXPECT)
+    del bk
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"keygen_s": keygen_s, "one_device_s": secs, "held": out["held"],
+            "limbs": out["limbs"],
+            "encrypt_after_sha256": hashlib.sha256(out["encrypt"].numpy().tobytes()).hexdigest()}
+
+
+def _wait_for(path: str):
+    """`torch.load(path)` once the parent has written it; raise if it
+    wrote `path`.err instead, or after MESH_TIMEOUT_S."""
+    deadline = time.monotonic() + MESH_TIMEOUT_S
+    while not os.path.exists(path):
+        if os.path.exists(path + ".err"):
+            raise RuntimeError(f"the parent failed to write {path}")
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"{path} not written within {MESH_TIMEOUT_S} s")
+        time.sleep(0.5)
+    return torch.load(path, weights_only=False)
+
+
+def _mesh_data_axis(bk, shard_ctx) -> dict:
+    """Real ciphertexts held sharded over "data" and "model", at the
+    paper's parameters on the same mesh: `_data_axis_calls` under the
+    rank's shard context — 2 of the batch's 4 lanes a rank, 15 of their
+    30 limbs, through mul (the operand's limbs gathered, the tensor
+    whole, the key switch on the rank's output limbs), rotate (digits
+    gathered), fold_blocks (summed over "data", its limbs gathered),
+    decrypt and the refresh (lanes and limbs gathered) — against the same
+    calls on one device, which the parent ran with whole keys.  Every
+    gathered residue, decrypt, noise and the last encryption must be
+    equal (the refresh re-encrypts from the generator on every rank in the
+    same order)."""
+    import hashlib
+
+    t0 = clock()
+    held = _data_axis_calls(bk, shard_ctx)
+    secs = clock() - t0
+    one = _wait_for(MESH_DATA_EXPECT)
     equal = {}
-    for key, got in sharded.items():
-        if key == "held":
+    for key, got in held.items():
+        if key in ("held", "limbs"):
             continue
         ref = one[key]
         equal[key] = (torch.equal(got, ref) if isinstance(got, torch.Tensor)
@@ -2226,13 +2309,17 @@ def _mesh_data_axis(bk, shard_ctx) -> dict:
     bad = []
     if not all(equal.values()):
         bad.append(f"data axis: sharded calls != one device: {equal}")
-    if sharded["held"] != [2, 2, 2] or one["held"] != [3, 3, 3]:
-        bad.append(f"data axis: lanes held {sharded['held']} (one device {one['held']})")
-    if np.ndim(sharded["noise"]) != 1:
-        bad.append(f"data axis: refresh of lanes 0, 2 left noise {sharded['noise']}")
-    digest = hashlib.sha256(sharded["encrypt"].cpu().numpy().tobytes()).hexdigest()
-    return {"lanes": 4, "live": 3, "held": sharded["held"], "equal_to_one_device": equal,
-            "sharded_s": secs, "encrypt_after_sha256": digest, "failures": bad}
+    kl = bk.params.k // MESH_GRID[1]
+    if (held["held"] != [2, 2, 2] or held["limbs"] != [kl] * 3 or one["held"] != [3, 3, 3]
+            or one["limbs"] != [bk.params.k] * 3):
+        bad.append(f"data axis: lanes, limbs held {held['held']}, {held['limbs']} "
+                   f"(one device {one['held']}, {one['limbs']})")
+    if np.ndim(held["noise"]) != 1:
+        bad.append(f"data axis: refresh of lanes 0, 2 left noise {held['noise']}")
+    digest = hashlib.sha256(held["encrypt"].numpy().tobytes()).hexdigest()
+    return {"lanes": 4, "live": 3, "held": held["held"], "limbs": held["limbs"],
+            "equal_to_one_device": equal, "sharded_s": secs, "encrypt_after_sha256": digest,
+            "failures": bad}
 
 
 # the scan step on the same ranks: CONFIG at full width on 16 blocks
@@ -2393,16 +2480,28 @@ def _mesh_rank(rank: int, world: int, backend: str, expect_stats) -> None:
             dist.destroy_process_group()
 
 
-def _run_ranks(world: int, backend: str, expect_stats=None) -> list:
-    """Start `world` rank processes, wait for all (killing any still alive
-    after MESH_TIMEOUT_S) and return their records; raise on any failure."""
+def _run_ranks(world: int, backend: str, expect_stats=None, meanwhile=None):
+    """Start `world` rank processes, run `meanwhile()` here if given (the
+    ranks wait for what it writes; if it raises, it writes
+    MESH_DATA_EXPECT.err so that they stop), wait for all (killing any
+    still alive after MESH_TIMEOUT_S) and return their records, and
+    `meanwhile`'s result when given; raise on any failure."""
     import multiprocessing
+    import traceback
     spawn = multiprocessing.get_context("spawn")
     procs = [spawn.Process(target=_mesh_rank, args=(r, world, backend, expect_stats))
              for r in range(world)]
     for p in procs:
         p.start()
     deadline = time.monotonic() + MESH_TIMEOUT_S
+    recs, bad, extra = [], [], None
+    if meanwhile is not None:
+        try:
+            extra = meanwhile()
+        except Exception:
+            bad.append(f"parent raised:\n{traceback.format_exc()}")
+            with open(MESH_DATA_EXPECT + ".err", "w") as f:
+                f.write(bad[-1])
     for p in procs:
         p.join(max(deadline - time.monotonic(), 0))
     hung = [r for r, p in enumerate(procs) if p.is_alive()]
@@ -2410,7 +2509,6 @@ def _run_ranks(world: int, backend: str, expect_stats=None) -> list:
         if p.is_alive():
             p.kill()
             p.join(30)
-    recs, bad = [], []
     for r, p in enumerate(procs):
         base = os.path.join(MESH_DIR, f"{backend}.{r}")
         if os.path.exists(base + ".json"):
@@ -2424,7 +2522,7 @@ def _run_ranks(world: int, backend: str, expect_stats=None) -> list:
             bad.append(f"{backend} rank {r} {'hung' if r in hung else f'exited {p.exitcode}'}")
     if bad:
         raise AssertionError("mesh phase: " + "\n".join(bad))
-    return recs
+    return recs if meanwhile is None else (recs, extra)
 
 
 def _summed(counts) -> dict:
@@ -2437,12 +2535,13 @@ def _summed(counts) -> dict:
 
 def phase_mesh(expect_stats) -> tuple[dict, dict]:
     """Four ranks sharing the card over gloo on a 2 x 2 ("data", "model")
-    mesh, each running Q1 on real ciphertexts held sharded over "data"
-    (every rank equal to the oracle, OpStats equal to the unsharded run's,
-    its ledger to a logical 2 x 2 context's), then a sharded BFV batch's
-    mul, rotate, fold, decrypt and refresh against one device, then the
-    scan step on the mesh against one device and the dry-run; then one
-    rank under NCCL.  Returns the launch counts of the four ranks'
+    mesh, each running Q1 on real ciphertexts held over "data" and
+    "model", its keys by output-limb slice (every rank equal to the
+    oracle, OpStats equal to the unsharded run's, its ledger to a logical
+    2 x 2 context's), then a sharded BFV batch's mul, rotate, fold,
+    decrypt and refresh against one device (the parent's, run beside the
+    ranks), then the scan step on the mesh against one device and the
+    dry-run; then one rank under NCCL.  Returns the launch counts of the four ranks'
     queries and of their scan steps, each summed over the ranks (the
     checks after Q1 and the one-device scan are not counted)."""
     shutil.rmtree(MESH_DIR, ignore_errors=True)
@@ -2453,7 +2552,8 @@ def phase_mesh(expect_stats) -> tuple[dict, dict]:
         expect_s = time.perf_counter() - t0
         t0 = time.perf_counter()
         world = MESH_GRID[0] * MESH_GRID[1]
-        recs = _run_ranks(world, "gloo", expect_stats)
+        recs, data_expect = _run_ranks(world, "gloo", expect_stats,
+                                       meanwhile=_mesh_data_axis_expected)
         gloo_s = time.perf_counter() - t0
         ledger = logical()
     for rec in recs:
@@ -2471,6 +2571,7 @@ def phase_mesh(expect_stats) -> tuple[dict, dict]:
               for mode in pred}
     emit("mesh", {"grid": list(MESH_GRID), "backend": "gloo", "tensors": "cuda",
                   "phase_s": round(expect_s + gloo_s, 3), "ranks": recs,
+                  "data_axis_one_device": data_expect,
                   "scan_step": {"blocks": MESH_SCAN_BLOCKS, "chunk": MESH_SCAN_CHUNK,
                                 "one_device_s": scan_expect["one_device_s"],
                                 "one_device_chunk": scan_expect["one_device_chunk"],
@@ -2486,8 +2587,9 @@ def phase_mesh(expect_stats) -> tuple[dict, dict]:
         raise AssertionError(f"mesh phase: ranks {off}: ledgers differ from the logical "
                              f"2 x 2 context's {ledger}")
     digests = {rec["data_axis"]["encrypt_after_sha256"] for rec in recs}
-    if len(digests) != 1:
-        raise AssertionError(f"mesh phase: the ranks' generators left step: {digests}")
+    if digests != {data_expect["encrypt_after_sha256"]}:
+        raise AssertionError(f"mesh phase: the ranks' generators left step: {digests}, one "
+                             f"device {data_expect['encrypt_after_sha256']}")
     off = [(mode, r) for mode, rec in beside.items() for r, got in enumerate(rec["ranks"])
            if got["collective_bytes"] != rec["dryrun"]["collective_bytes"]]
     if off:

@@ -27,14 +27,23 @@ plain tensor code on the context's device.
 
 On a ("data", "model") device mesh (launch/mesh.py) every rank runs the
 same program.  A stacked batch the query engine places on the mesh is
-held sharded over "data" (`CiphertextBatch.lanes`): each rank keeps and
-computes only its own lanes, with every limb of them, and the key
-switch splits those lanes' limbs over "model" (`kswitch_gathered`),
-all-gathering digits and outputs there.  Keys, singletons and the
-noise accounting are the same on every rank.  A sharded batch pairs
-only with one holding the same lanes or with a singleton; the lanes
-cross ranks only where the engine gathers or folds them, so every
-gathered result has the bytes one device computes.
+held as the reference's `batch_sharding` places it: its lanes over
+"data" (`CiphertextBatch.lanes`) and, where k divides over "model", its
+RNS limbs over "model" (`CiphertextBatch.limbs`).  Each rank keeps and
+computes only its lanes' limbs [lo, hi): every pointwise, NTT and Galois
+step runs on them with that slice's moduli and tables.  Each rank holds
+every key switch key by its output-limb slice [:, lo:hi] (`KSwitchKey.
+limbs`).  A limb-held batch's key switch all-gathers its centred digits
+over "model" (rotations) or, in `mul`, the operands' limbs, whose HPS
+tensor every "model" peer computes whole; its outputs stay limb-held.
+No float64 sum over limbs (`_fbc`'s v, decrypt's frac) ever sees a
+partial set of them.  Singletons, `sk`, `pk` and the noise accounting
+are whole and the same on every rank; a singleton's key switch slices
+its limbs, gathers digits and outputs over "model" (`kswitch_gathered`).
+A held batch pairs only with one holding the same lanes and limbs or
+with a singleton; lanes and limbs cross ranks only where the engine
+gathers or folds them, so every gathered result has the bytes one
+device computes.
 
 Tensors are never updated in place once they are part of a ciphertext:
 handles are aliased by the engine's mask cache, so ops that rewrite one
@@ -78,6 +87,15 @@ class LaneShard(NamedTuple):
     mesh: object
 
 
+class LimbShard(NamedTuple):
+    """The RNS limbs [lo, hi) of `total` that this rank holds of a batch,
+    and the mesh whose "model" axis splits them."""
+    lo: int
+    hi: int
+    total: int
+    mesh: object
+
+
 @dataclasses.dataclass
 class CiphertextBatch:
     """A stacked column of ciphertext blocks with one shared op history.
@@ -97,15 +115,17 @@ class CiphertextBatch:
     `nphys` reports the padded leading axis.
 
     `lanes` is set when the batch is held sharded over a mesh's "data"
-    axis: `data` then holds only this rank's lanes of the batch, while
-    `nblocks`, `nphys` and `noise` keep describing the whole (global)
-    batch, the same on every rank.
+    axis, `limbs` when its RNS limbs are held over the "model" axis:
+    `data` then holds only this rank's lanes, and of them its limbs,
+    while `nblocks`, `nphys`, `noise` and `params.k` keep describing the
+    whole (global) batch, the same on every rank.
     """
-    data: torch.Tensor       # (nblocks, 2, k, n) int64; this rank's lanes if sharded
+    data: torch.Tensor       # (nblocks, 2, k, n) int64; this rank's lanes / limbs if held
     noise: "float | np.ndarray"
     params: HEParams
     live: int | None = None
     lanes: LaneShard | None = None
+    limbs: LimbShard | None = None
 
     @property
     def nblocks(self) -> int:
@@ -136,6 +156,9 @@ class PublicKey:
 class KSwitchKey:
     b: torch.Tensor          # (k, k, n) NTT domain, digit-major
     a: torch.Tensor          # (k, k, n)
+    # (lo, hi) when this rank holds only the output limbs [lo, hi) of the
+    # key, (k, hi - lo, n) (engine/sharded.place_keys); None when whole
+    limbs: tuple[int, int] | None = None
 
 
 @dataclasses.dataclass
@@ -184,11 +207,52 @@ def _lane_text(ct) -> str:
     return f"a whole batch of {ct.data.shape[0]} lanes" if ct.data.ndim == 4 else "a ciphertext"
 
 
+def _limb_text(ct) -> str:
+    """Which limbs a ciphertext or batch holds, for an error message."""
+    limbs = getattr(ct, "limbs", None)
+    if limbs is not None:
+        return f"limbs [{limbs.lo}, {limbs.hi}) of {limbs.total}"
+    return f"every limb of {_lane_text(ct)}"
+
+
+def _held(ct, axis: str):
+    """The `LaneShard` / `LimbShard` of a batch held over a mesh axis
+    ("lanes" or "limbs"), None for a ciphertext or a whole batch."""
+    return getattr(ct, axis, None)
+
+
+def _singleton(ct) -> bool:
+    """A ciphertext, or a whole batch of one lane: it broadcasts."""
+    return (_held(ct, "lanes") is None and _held(ct, "limbs") is None
+            and (ct.data.ndim == 3 or ct.data.shape[0] == 1))
+
+
+def model_limbs(mesh, k: int) -> tuple[int, int] | None:
+    """This rank's limbs [lo, hi) of k on the mesh's "model" axis, or
+    None where a rank holds every limb: a "model" axis of one rank or
+    none, or a rank outside the mesh.  Raises when k does not split."""
+    M = mesh_axes(mesh).get("model", 1)
+    if M == 1 or mesh.get_coordinate() is None:
+        return None
+    if k % M:
+        raise ValueError(f"k={k} limbs do not split over a model axis of {M}")
+    lo = axis_index(mesh, "model") * (k // M)
+    return lo, lo + k // M
+
+
 def _whole(batch: CiphertextBatch, what: str) -> None:
-    """Raise if `batch` is held sharded: `what` needs every lane."""
+    """Raise if `batch` is held sharded: `what` needs every lane and limb."""
     if batch.lanes is not None:
         raise ValueError(f"{what} needs the whole batch, but this rank holds "
                          f"{_lane_text(batch)}: gather them first (BFVContext.gather_lanes)")
+    _all_limbs(batch, what)
+
+
+def _all_limbs(ct, what: str) -> None:
+    """Raise if `ct` is held over "model": `what` needs every limb."""
+    if _held(ct, "limbs") is not None:
+        raise ValueError(f"{what} needs every limb, but this rank holds {_limb_text(ct)}: "
+                         f"gather them first (BFVContext.gather_limbs)")
 
 
 class BFVContext:
@@ -243,20 +307,46 @@ class BFVContext:
     @staticmethod
     def _pick(a, b):
         """Of two operands, the one whose type the result should take
-        (the batched one, when single and batch are mixed).  A batch held
-        sharded pairs with a batch holding the same lanes, or with a
-        singleton (a ciphertext, or a batch of one lane), which
-        broadcasts; any other pair raises rather than broadcast over the
-        wrong lanes."""
-        la, lb = getattr(a, "lanes", None), getattr(b, "lanes", None)
-        if la == lb:
-            return a if a.data.ndim >= b.data.ndim else b
-        shard, other = (a, b) if la is not None else (b, a)
-        if getattr(other, "lanes", None) is not None or (
-                other.data.ndim == 4 and other.data.shape[0] != 1):
-            raise ValueError(f"a batch held sharded ({_lane_text(shard)}) pairs only with "
-                             f"the same lanes or a singleton, not {_lane_text(other)}")
-        return shard
+        (the held or batched one, when single and batch are mixed).  A
+        batch held sharded pairs with a batch holding the same lanes and
+        limbs, or with a singleton (a ciphertext, or a whole batch of one
+        lane), which broadcasts; any other pair raises rather than
+        broadcast over the wrong lanes or limbs."""
+        for axis, text, what in (("lanes", _lane_text, "sharded"),
+                                 ("limbs", _limb_text, 'over "model"')):
+            ha, hb = _held(a, axis), _held(b, axis)
+            if ha == hb:
+                continue
+            held, other = (a, b) if ha is not None else (b, a)
+            if _held(other, axis) is not None or not _singleton(other):
+                raise ValueError(f"a batch held {what} ({text(held)}) pairs only with "
+                                 f"the same {axis} or a singleton, not {text(other)}")
+        for x, y in ((a, b), (b, a)):
+            if (_held(x, "lanes") or _held(x, "limbs")) and _singleton(y):
+                return x
+        return a if a.data.ndim >= b.data.ndim else b
+
+    def _pair(self, a, b):
+        """(result's type, a's data, b's data, ops of the held limbs): a
+        singleton paired with a limb-held batch sliced to its limbs."""
+        out = self._pick(a, b)
+        limbs = _held(out, "limbs")
+        da, db = a.data, b.data
+        if limbs is not None:
+            da = da if _held(a, "limbs") else da[..., limbs.lo:limbs.hi, :]
+            db = db if _held(b, "limbs") else db[..., limbs.lo:limbs.hi, :]
+        return out, da, db, self._ops(out)
+
+    def _ops(self, ct) -> LimbOps:
+        """The primitives of the limbs `ct` holds: the whole base Q, or
+        its slice's `LimbLocalOps` for a batch held over "model"."""
+        limbs = _held(ct, "limbs")
+        return self.limb_q if limbs is None else self._limb_slice(limbs.lo, limbs.hi)
+
+    def _delta(self, ct) -> torch.Tensor:
+        """delta mod each prime `ct` holds."""
+        limbs = _held(ct, "limbs")
+        return self.delta if limbs is None else self.delta[limbs.lo:limbs.hi]
 
     @staticmethod
     def pack_noises(noises: list) -> "float | np.ndarray":
@@ -283,12 +373,31 @@ class BFVContext:
 
     @staticmethod
     def gather_lanes(batch: CiphertextBatch) -> CiphertextBatch:
-        """A batch held sharded as the whole batch, on every rank (an
+        """A batch held sharded as every lane of it, on every rank (an
         all-gather of the lanes over "data"); any other batch as it is."""
         if batch.lanes is None:
             return batch
         data = gather_axis(batch.data, batch.lanes.mesh, "data", dim=0)
         return dataclasses.replace(batch, data=data, lanes=None)
+
+    @staticmethod
+    def gather_limbs(ct):
+        """A batch held over "model" with every limb of its lanes, on every
+        rank (an all-gather of the limbs over "model", dim -2); any other
+        ciphertext or batch as it is."""
+        limbs = _held(ct, "limbs")
+        if limbs is None:
+            return ct
+        data = gather_axis(ct.data, limbs.mesh, "model", dim=-2)
+        return dataclasses.replace(ct, data=data, limbs=None)
+
+    @classmethod
+    def gather(cls, ct):
+        """Every lane and limb of `ct` on every rank: its lanes gathered
+        over "data", then their limbs over "model"."""
+        if isinstance(ct, CiphertextBatch):
+            ct = cls.gather_lanes(ct)
+        return cls.gather_limbs(ct)
 
     # ------------------------------------------------------------- sampling
     def _sample_uniform_ntt(self) -> torch.Tensor:
@@ -370,7 +479,9 @@ class BFVContext:
 
     # ------------------------------------------------------------- decrypt
     def decrypt(self, ct, sk: SecretKey) -> torch.Tensor:
-        """Decrypt a Ciphertext -> (n,) or a CiphertextBatch -> (nb, n)."""
+        """Decrypt a Ciphertext -> (n,) or a CiphertextBatch -> (nb, n).
+        `frac` is a float sum over every limb: a limb-held batch raises."""
+        _all_limbs(ct, "decrypt")
         return self._decrypt_impl(ct.data, sk.s_ntt)
 
     @staticmethod
@@ -397,23 +508,21 @@ class BFVContext:
 
     # ------------------------------------------------------- add/sub/neg
     def add(self, a, b):
-        out = self._pick(a, b)
-        return self._like(out, self.limb_q.add(a.data, b.data),
-                          self.noise_model.add(a.noise, b.noise))
+        out, da, db, ops = self._pair(a, b)
+        return self._like(out, ops.add(da, db), self.noise_model.add(a.noise, b.noise))
 
     def sub(self, a, b):
-        out = self._pick(a, b)
-        return self._like(out, self.limb_q.sub(a.data, b.data),
-                          self.noise_model.add(a.noise, b.noise))
+        out, da, db, ops = self._pair(a, b)
+        return self._like(out, ops.sub(da, db), self.noise_model.add(a.noise, b.noise))
 
     def neg(self, a):
-        return self._like(a, (-a.data) % self.qQ[:, None], a.noise)
+        return self._like(a, (-a.data) % self._ops(a).q[:, None], a.noise)
 
     def add_plain(self, a, m_poly):
         m = self._dev(m_poly)
+        q = self._ops(a).q[:, None]
         data = a.data.clone()
-        data[..., 0, :, :] = (data[..., 0, :, :]
-                              + self.delta[:, None] * m[None, :]) % self.qQ[:, None]
+        data[..., 0, :, :] = (data[..., 0, :, :] + self._delta(a)[:, None] * m[None, :]) % q
         return self._like(a, data, self.noise_model.add(a.noise, a.noise))
 
     def sub_from_plain(self, m_poly, a):
@@ -422,14 +531,14 @@ class BFVContext:
 
     # ------------------------------------------------------ plain multiply
     def mul_plain(self, a, m_poly):
-        data = self._mul_plain_impl(a.data, self._dev(m_poly))
+        data = self._mul_plain_impl(a.data, self._dev(m_poly), self._ops(a))
         return self._like(a, data, self.noise_model.mul_plain(a.noise))
 
     # ------------------------------------------------------ scalar constants
     def mul_scalar(self, a, c: int):
         """Multiply by the constant polynomial c — no NTT, tight noise growth."""
         c %= self.params.t
-        data = (a.data * c) % self.qQ[:, None]
+        data = (a.data * c) % self._ops(a).q[:, None]
         return self._like(a, data, self.noise_model.mul_scalar(a.noise, c))
 
     def add_scalar(self, a, c: int):
@@ -439,21 +548,23 @@ class BFVContext:
         so only coefficient 0 of c0 moves (by delta*c per limb)."""
         c %= self.params.t
         data = a.data.clone()
-        data[..., 0, :, 0] = (data[..., 0, :, 0] + self.delta * c) % self.qQ
+        data[..., 0, :, 0] = (data[..., 0, :, 0] + self._delta(a) * c) % self._ops(a).q
         return self._like(a, data, self.noise_model.add(a.noise, a.noise))
 
     def sub_from_scalar(self, c: int, a):
         """Encrypted (c - a) for scalar c."""
         return self.add_scalar(self.neg(a), c)
 
-    def _mul_plain_impl(self, data, m):
-        lq = self.limb_q
+    def _mul_plain_impl(self, data, m, lq: LimbOps | None = None):
+        """The plaintext `m` reduced mod the primes of `lq` (the whole
+        base by default), times `data`, which holds those limbs."""
+        lq = lq or self.limb_q
         if m.ndim == 2:
             # per-block plaintexts: m is (nblocks, n) against a
             # (nblocks, 2, k, n) batch (fused broadcast_slot extraction)
-            m_ntt = lq.ntt(m[:, None, :] % self.qQ[None, :, None])
+            m_ntt = lq.ntt(m[:, None, :] % lq.q[None, :, None])
         else:
-            m_ntt = lq.ntt(m[None, :] % self.qQ[:, None])
+            m_ntt = lq.ntt(m[None, :] % lq.q[:, None])
         out0 = lq.intt(lq.mul(lq.ntt(data[..., 0, :, :]), m_ntt))
         out1 = lq.intt(lq.mul(lq.ntt(data[..., 1, :, :]), m_ntt))
         return torch.stack([out0, out1], dim=-3)
@@ -481,11 +592,26 @@ class BFVContext:
     # ------------------------------------------------------- ct-ct multiply
     def mul(self, a, b, rlk: KSwitchKey, mesh=None):
         """HPS tensor + relinearization.  With a 2-D query mesh the relin
-        key-switch all-gathers its decomposition digits over the mesh
-        "model" axis (`kswitch_gathered`) — the same bytes, a different
-        collective structure."""
+        key-switch of a singleton all-gathers its decomposition digits
+        over the mesh "model" axis (`kswitch_gathered`) — the same bytes,
+        a different collective structure.  A batch held over "model"
+        all-gathers its operands' limbs there (once when `a is b`), runs
+        the tensor whole — `_fbc`'s float sums see every limb — and keeps
+        its own limbs of the result; `r2` is whole, so its key switch
+        gathers nothing."""
         out = self._pick(a, b)
-        if mesh is None:
+        limbs = _held(out, "limbs")
+        if limbs is not None:
+            da = self.gather_limbs(a).data
+            db = da if b is a else self.gather_limbs(b).data
+            r0, r1, r2 = self._mul_tensor_impl(da, db)
+            lo, hi = limbs.lo, limbs.hi
+            ks0, ks1 = self._ks_digits(self._centred(r2, self.qQ), self._key_limbs(rlk, lo, hi),
+                                       lo, hi)
+            q = self._ops(out).q[:, None]
+            data = torch.stack([(r0[..., lo:hi, :] + ks0) % q, (r1[..., lo:hi, :] + ks1) % q],
+                               dim=-3)
+        elif mesh is None:
             data = self._mul_impl(a.data, b.data, rlk.b, rlk.a)
         else:
             r0, r1, r2 = self._mul_tensor_impl(a.data, b.data)
@@ -538,76 +664,105 @@ class BFVContext:
         return torch.stack([(r0 + ks0) % q, (r1 + ks1) % q], dim=-3)
 
     # --------------------------------------------------------- key switch
+    @staticmethod
+    def _centred(poly, q):
+        """The centred residues of `poly` ((..., len(q), n)) mod `q`."""
+        return poly - q[:, None] * (poly > (q // 2)[:, None])
+
+    def _ks_digits(self, cent, keys, lo: int, hi: int):
+        """The key switch's output limbs [lo, hi) from every centred digit
+        `cent` ((..., k, n)) and the key's (b, a) of those output limbs:
+        the digits reduced mod those limbs' primes, NTT'd with their
+        tables, times each key, summed over the whole digit axis in order,
+        INTT'd."""
+        ops = self._limb_slice(lo, hi)
+        ql = ops.q
+        d_ntt = ops.ntt(cent[..., :, None, :] % ql[None, :, None])    # (..., kd, kL, n)
+        return tuple(ops.intt(torch.sum(ops.mul(d_ntt, key), dim=-3) % ql[:, None])
+                     for key in keys)
+
+    def _key_limbs(self, ksk: KSwitchKey, lo: int, hi: int):
+        """(b, a) of output limbs [lo, hi): a whole key's slice, or a key
+        placed with exactly those limbs; a key placed with others raises
+        (nothing re-slices it)."""
+        if ksk.limbs is None:
+            return ksk.b[:, lo:hi], ksk.a[:, lo:hi]
+        if tuple(ksk.limbs) != (lo, hi):
+            raise ValueError(f"a key held by output limbs [{ksk.limbs[0]}, {ksk.limbs[1]}) "
+                             f"cannot key-switch limbs [{lo}, {hi})")
+        return ksk.b, ksk.a
+
     def _kswitch_inner(self, poly, ksk_b, ksk_a):
-        """Key-switch `poly` (coeff domain, (..., k, n)): coeff-domain pair."""
-        q = self.qQ[:, None]
-        qvec = self.qQ
-        half = qvec // 2
-        lq = self.limb_q
-        cent = poly - qvec[:, None] * (poly > half[:, None])       # centered digits
-        digits = cent[..., :, None, :] % qvec[None, :, None]       # (..., kd, k, n)
-        d_ntt = lq.ntt(digits)
-        acc_b = torch.sum(lq.mul(d_ntt, ksk_b), dim=-3) % q
-        acc_a = torch.sum(lq.mul(d_ntt, ksk_a), dim=-3) % q
-        return lq.intt(acc_b), lq.intt(acc_a)
+        """Key-switch `poly` (coeff domain, (..., k, n)): coeff-domain pair.
+        The one-device path: a key placed by output-limb slice raises."""
+        k = self.params.k
+        if ksk_b.shape[-2] != k or ksk_a.shape[-2] != k:
+            raise ValueError(f"the one-device key switch needs whole (k, k, n) keys, got "
+                             f"{tuple(ksk_b.shape)}: a key held by output-limb slice "
+                             f"(engine/sharded.place_keys) runs only on its mesh")
+        return self._ks_digits(self._centred(poly, self.qQ), (ksk_b, ksk_a), 0, k)
 
     def kswitch_gathered(self, poly, ksk: KSwitchKey, mesh):
-        """`_kswitch_inner` on a ("data", "model") device mesh, of the
-        lanes of `poly` this rank holds: those of a batch held sharded
-        over "data", or every lane where every rank holds them.  Its
-        "model" peers hold the same lanes, so nothing crosses "data".
+        """`_kswitch_inner` on a ("data", "model") device mesh, of a
+        polynomial every "model" peer holds whole (a singleton's, or the
+        lanes of a batch held sharded over "data" only).
 
         Each rank takes its (kL = k/M)-limb slice of `poly`, centres its
         digits and all-gathers them along "model" — k*n int64 per block,
         the minimal cross-limb payload.  It then reduces the gathered
         digits mod its own primes, NTTs them with its slice's tables,
-        multiplies by the key's output-limb slice (KSwitchKey axis 1),
-        sums over the whole digit axis and INTTs; the outputs all-gather
-        back along "model".  Exact int64 throughout, so the result is
-        byte-identical to the one-device path.  A rank outside the mesh
-        computes that path."""
-        axes = mesh_axes(mesh)
+        multiplies by the key's output-limb slice (KSwitchKey axis 1: a
+        whole key's, or a key placed with these limbs), sums over the
+        whole digit axis and INTTs; the outputs all-gather back along
+        "model".  Exact int64 throughout, so the result is byte-identical
+        to the one-device path.  A rank outside the mesh computes that
+        path."""
+        mesh_axes(mesh)                     # a DeviceMesh, or TypeError
         if mesh.get_coordinate() is None:
             return self._kswitch_inner(poly, ksk.b, ksk.a)
-        k, n = self.params.k, self.params.n
-        M = axes.get("model", 1)
-        if k % M:
-            raise ValueError(f"k={k} limbs do not split over a model axis of {M}")
-        p3 = poly.reshape(-1, k, n)
-        kl = k // M
-        lo = axis_index(mesh, "model") * kl
-        ops = self._limb_slice(lo, lo + kl)
-        ql = ops.q
-        part = p3[:, lo:lo + kl]
-        cent = part - ql[:, None] * (part > (ql // 2)[:, None])       # (Bl, kL, n)
-        gath = gather_axis(cent, mesh, "model", dim=1)                 # (Bl, k, n)
-        d_ntt = ops.ntt(gath[:, :, None, :] % ql[None, None, :, None])  # (Bl, k, kL, n)
-        outs = []
-        for key in (ksk.b, ksk.a):
-            acc = torch.sum(ops.mul(d_ntt, key[:, lo:lo + kl]), dim=1) % ql[:, None]
-            outs.append(ops.intt(acc))
-        both = gather_axis(torch.stack(outs), mesh, "model", dim=2)   # (2, Bl, k, n)
-        return both[0].reshape(poly.shape), both[1].reshape(poly.shape)
+        lo, hi = model_limbs(mesh, self.params.k) or (0, self.params.k)
+        limbs = LimbShard(lo, hi, self.params.k, mesh)
+        both = gather_axis(torch.stack(self._kswitch_held(poly[..., lo:hi, :], ksk, limbs)),
+                           mesh, "model", dim=-2)
+        return both[0], both[1]
 
-    def _limb_slice(self, lo: int, hi: int) -> LimbLocalOps:
-        """The ops of ciphertext limbs [lo, hi), built once per slice."""
+    def _kswitch_held(self, part, ksk: KSwitchKey, limbs: LimbShard):
+        """The key switch of a polynomial held as its limbs `limbs`
+        ((..., kL, n)): its centred digits all-gathered over "model",
+        then this rank's output limbs, which stay held."""
+        cent = self._centred(part, self._limb_slice(limbs.lo, limbs.hi).q)
+        whole = gather_axis(cent, limbs.mesh, "model", dim=-2)
+        lo, hi = limbs.lo, limbs.hi
+        return self._ks_digits(whole, self._key_limbs(ksk, lo, hi), lo, hi)
+
+    def _limb_slice(self, lo: int, hi: int) -> LimbOps:
+        """The ops of ciphertext limbs [lo, hi), built once per slice (the
+        whole base's for every limb)."""
+        if (lo, hi) == (0, self.params.k):
+            return self.limb_q
         if (lo, hi) not in self._local_ops:
             self._local_ops[lo, hi] = LimbLocalOps(self.params.Q, lo, hi,
                                                    device=self.device)
         return self._local_ops[lo, hi]
 
     # ------------------------------------------------------------ rotation
-    def _apply_galois_impl(self, data, g: int):
+    def _apply_galois_impl(self, data, g: int, q):
+        """The Galois permutation of `data`, reduced mod the primes `q` of
+        the limbs it holds: limb-local."""
         src, sign = self._galois_tabs[g]
-        return (sign * data[..., src]) % self.qQ[:, None]
+        return (sign * data[..., src]) % q[:, None]
 
     def apply_galois(self, ct, g: int, gk: KSwitchKey, mesh=None):
-        rot = self._apply_galois_impl(ct.data, g)
-        if mesh is None:
+        q = self._ops(ct).q
+        rot = self._apply_galois_impl(ct.data, g, q)
+        limbs = _held(ct, "limbs")
+        if limbs is not None:
+            ks0, ks1 = self._kswitch_held(rot[..., 1, :, :], gk, limbs)
+        elif mesh is None:
             ks0, ks1 = self._kswitch_inner(rot[..., 1, :, :], gk.b, gk.a)
         else:
             ks0, ks1 = self.kswitch_gathered(rot[..., 1, :, :], gk, mesh)
-        c0 = (rot[..., 0, :, :] + ks0) % self.qQ[:, None]
+        c0 = (rot[..., 0, :, :] + ks0) % q[:, None]
         return self._like(ct, torch.stack([c0, ks1], dim=-3),
                           self.noise_model.rotate(ct.noise))
 
@@ -689,7 +844,9 @@ class BFVContext:
 
     # ------------------------------------------------------- noise measure
     def noise_budget_exact(self, ct: Ciphertext, sk: SecretKey) -> float:
-        """Exact invariant-noise budget in bits (host-side bigint; tests)."""
+        """Exact invariant-noise budget in bits (host-side bigint; tests);
+        a held ciphertext is gathered first."""
+        ct = self.gather(ct)
         p = self.params
         q = self.qQ[:, None]
         lq = self.limb_q

@@ -4,9 +4,11 @@ The HE core (bfv.kswitch_gathered) and the query engine
 (engine/sharded.py) split work by rank through these helpers, and
 gradient compression (train/compression.compressed_psum) sums over them;
 the mesh factories live in launch/mesh.py.  The query engine runs one
-process per rank, each holding its lanes of every stacked batch and
-every key (`gather_axis` over "data" gathers a batch's lanes); the scan
-step (launch/nshedb_step.query_step_sharded) holds only its shard.  A
+process per rank, each holding its lanes of every stacked batch and its
+limbs of them, and every key switch key by its output-limb slice
+(`gather_axis` over "data" gathers a batch's lanes, over "model" its
+limbs); the scan step (launch/nshedb_step.query_step_sharded) holds only
+its shard.  A
 collective here is the only place where ranks exchange data.
 
 Every helper adds the bytes of its result, by the kinds the JAX

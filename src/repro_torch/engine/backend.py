@@ -34,12 +34,15 @@ of the shard count with zero blocks (`live` on the batch keeps stats,
 noise and decrypt on the logical count) and every charge is mirrored
 into the context's distributed/replicated cost ledger.  With a real
 device mesh attached (BFV only: the Mock backend keeps the mesh in the
-ledger layer) a stacked batch is held sharded over "data": each rank
-stacks and computes only its own lanes (`sharded.place_batch`), the
-block fold runs shard-local with an all-reduce over "data"
-(`sharded.sharded_fold`), unstack, decrypt and refresh all-gather the
-lanes first, and key switches all-gather their digits over "model".
-Op counts, noise and the ledger stay on the global lane counts.
+ledger layer) a stacked batch is held as the reference places it: each
+rank stacks and computes only its own lanes over "data" and, where k
+divides over "model", only its limbs of them (`sharded.place_batch`);
+the backend's key switch keys are placed by output-limb slice the first
+time it key-switches under such a mesh (`place_keys`).  The block fold
+runs shard-local with an all-reduce over "data" (`sharded.sharded_fold`),
+unstack, decrypt and refresh all-gather the lanes and limbs first, and
+key switches all-gather over "model" (core/bfv.py).  Op counts, noise
+and the ledger stay on the global lane counts.
 
 Both count operations in OpStats and track (noise, depth) per value, so
 the planner's predictions are validated against the same model regardless
@@ -278,12 +281,14 @@ class _BackendBase:
 # Real-ciphertext backend.
 # ---------------------------------------------------------------------------
 
-def _own_lanes(data: torch.Tensor, batch: CiphertextBatch) -> torch.Tensor:
-    """Of a whole batch's `data`, the lanes `batch` holds (a copy when
-    it holds a shard, so the whole is freed)."""
-    if batch.lanes is None:
+def _own(data: torch.Tensor, batch: CiphertextBatch) -> torch.Tensor:
+    """Of a whole batch's `data`, the lanes and limbs `batch` holds (a
+    copy when it holds a shard, so the whole is freed)."""
+    if batch.lanes is None and batch.limbs is None:
         return data
-    return data[batch.lanes.lo:batch.lanes.hi].clone()
+    lanes = slice(None) if batch.lanes is None else slice(batch.lanes.lo, batch.lanes.hi)
+    limbs = slice(None) if batch.limbs is None else slice(batch.limbs.lo, batch.limbs.hi)
+    return data[lanes, :, limbs].clone()
 
 
 class BFVBackend(_BackendBase):
@@ -387,9 +392,27 @@ class BFVBackend(_BackendBase):
 
     def _limb_mesh(self):
         """The active context's 2-D mesh iff key-switches should
-        all-gather over a real model axis (engine/sharded.py)."""
+        all-gather over a real model axis (engine/sharded.py); the keys
+        are placed on it the first time, so callers read `self.keys`
+        after calling this."""
         ctx = self.shard_ctx
-        return ctx.limb_mesh if ctx is not None else None
+        mesh = ctx.limb_mesh if ctx is not None else None
+        if mesh is not None and self.keys.rlk.limbs is None:
+            self.place_keys(mesh)
+        return mesh
+
+    def place_keys(self, mesh) -> None:
+        """Hold `rlk` and every Galois key by this rank's output-limb
+        slice on `mesh` (`sharded.place_key`; as they are where the rank
+        holds every limb).  Each whole key is let go as its slice is
+        made, so the rank never holds both sets; afterwards only that
+        mesh's key switches take them, and the one-device path raises."""
+        from .sharded import place_key
+        keys, self.keys = self.keys, None
+        sk, pk, rlk, whole = keys.sk, keys.pk, keys.rlk, dict(keys.gks)
+        del keys
+        gks = {g: place_key(whole.pop(g), mesh) for g in list(whole)}
+        self.keys = Keys(sk=sk, pk=pk, rlk=place_key(rlk, mesh), gks=gks)
 
     def _nblocks(self, ct) -> int:
         return ct.nblocks if isinstance(ct, CiphertextBatch) else 1
@@ -414,7 +437,8 @@ class BFVBackend(_BackendBase):
         identities; `live` keeps accounting on the logical count) —
         uneven tables compile to one even launch.  With a real mesh
         attached the batch is held sharded: this rank stacks only its
-        own lanes and pads (`sharded.place_batch`)."""
+        own lanes and pads, and of them its own limbs
+        (`sharded.place_batch`)."""
         ctx = self.shard_ctx
         if (ctx is None or len(blocks) <= 1
                 or (ctx.shards <= 1 and ctx.limb_mesh is None)):
@@ -424,25 +448,27 @@ class BFVBackend(_BackendBase):
             nphys = pad_to(len(blocks), ctx.shards)
             rows = [b.data for b in blocks]
             if ctx.mesh is not None:
-                data, lanes = place_batch(rows, nphys, ctx.mesh)
+                data, lanes, limbs = place_batch(rows, nphys, ctx.mesh)
             else:
-                data, lanes = stack_lanes(rows, 0, nphys), None
+                data, lanes, limbs = stack_lanes(rows, 0, nphys), None, None
             batch = CiphertextBatch(data, self.ctx.pack_noises([b.noise for b in blocks]),
-                                    self.params, live=len(blocks), lanes=lanes)
+                                    self.params, live=len(blocks), lanes=lanes, limbs=limbs)
         return self._set_d(batch, max(self._d(b) for b in blocks))
 
     def unstack_blocks(self, batch: CiphertextBatch) -> list:
-        """The batch's live lanes as single ciphertexts (all-gathered
-        first when it is held sharded: block lists are replicated)."""
+        """The batch's live lanes as single ciphertexts (its lanes and
+        limbs all-gathered first when it is held sharded: block lists are
+        replicated)."""
         d = self._d(batch)
         return [self._set_d(ct, d)
-                for ct in self.ctx.unstack_cts(self.ctx.gather_lanes(batch))]
+                for ct in self.ctx.unstack_cts(self.ctx.gather(batch))]
 
     def fold_blocks(self, batch: CiphertextBatch) -> Ciphertext:
         """Cross-block sum of a batch (the inter-block half of SUM/COUNT).
         Charges the same nblocks-1 adds as the sequential fold.  With a
         real mesh attached the reduction runs shard-local and combines
-        partials with an all-reduce over "data" (engine/sharded.py)."""
+        partials with an all-reduce over "data", then gathers a held
+        batch's limbs over "model" (engine/sharded.py)."""
         faults.maybe_device_loss("fold")
         ctx = self.shard_ctx
         self.stats.add += max(batch.nblocks - 1, 0)
@@ -451,8 +477,9 @@ class BFVBackend(_BackendBase):
             # ledger: shard-local adds + one psum tree (record_fold owns
             # the split; stats.add above stays the sequential-fold charge)
             ctx.record_fold(batch.nblocks, self._nblocks_phys(batch))
-        if batch.lanes is not None:
-            mesh = batch.lanes.mesh
+        held = batch.lanes or batch.limbs
+        if held is not None:
+            mesh = held.mesh
         elif (ctx is not None and ctx.mesh is not None
                 and batch.nphys % ctx.shards == 0 and batch.nphys > 1):
             mesh = ctx.mesh
@@ -460,7 +487,7 @@ class BFVBackend(_BackendBase):
             mesh = None
         if mesh is not None:
             from .sharded import sharded_fold
-            data = (sharded_fold(batch.data, batch.nblocks, mesh, batch.lanes)
+            data = (sharded_fold(batch.data, batch.nblocks, mesh, batch.lanes, batch.limbs)
                     % self.ctx.qQ[:, None])
             out = Ciphertext(data, self.ctx.fold_noise(batch), batch.params)
         else:
@@ -477,8 +504,7 @@ class BFVBackend(_BackendBase):
 
     def decrypt(self, ct) -> np.ndarray:
         self.stats.decrypt += self._nblocks(ct)
-        if isinstance(ct, CiphertextBatch):
-            ct = self.ctx.gather_lanes(ct)
+        ct = self.ctx.gather(ct)
         polys = self.ctx.decrypt(ct, self.keys.sk).cpu().numpy()
         if isinstance(ct, CiphertextBatch):
             # live lanes only: shard padding never reaches the client
@@ -494,11 +520,12 @@ class BFVBackend(_BackendBase):
     def refresh_inplace(self, ct, lanes: list | None = None) -> None:
         """Re-encrypt `ct` in place: the batch lanes `lanes` (global lane
         ids), or every live lane of it when None.  A batch held sharded
-        is all-gathered first and every rank refreshes every such lane in
-        the same order, so the seeded generator stays in step on all
-        ranks; each then keeps only its own lanes."""
+        is all-gathered first (lanes and limbs) and every rank refreshes
+        every such lane whole in the same order, so the seeded generator
+        stays in step on all ranks; each then keeps only its own lanes
+        and limbs."""
         if isinstance(ct, CiphertextBatch):
-            whole = self.ctx.gather_lanes(ct)
+            whole = self.ctx.gather(ct)
             if lanes is not None:
                 # partial: refresh only the exhausted lanes of the batch
                 per = (np.asarray(ct.noise, dtype=np.float64).copy()
@@ -510,13 +537,13 @@ class BFVBackend(_BackendBase):
                                                  self.params))
                     data[i] = fb.data
                     per[i] = fb.noise
-                ct.data, ct.noise = _own_lanes(data, ct), self.ctx.pack_noises(list(per))
+                ct.data, ct.noise = _own(data, ct), self.ctx.pack_noises(list(per))
                 return  # depth unchanged: un-refreshed lanes keep history
             batch = self.ctx.stack_cts([self.refresh(b) for b in self.ctx.unstack_cts(whole)])
             data = batch.data
             if ct.nphys > batch.nphys:  # padded: keep the zero pad lanes
                 data = torch.cat([data, whole.data[batch.nphys:]])
-            ct.data, ct.noise = _own_lanes(data, ct), batch.noise
+            ct.data, ct.noise = _own(data, ct), batch.noise
         else:
             fresh = self.refresh(ct)
             ct.data = fresh.data
@@ -552,7 +579,8 @@ class BFVBackend(_BackendBase):
                 self.model.mul(a.noise, b.noise)), "mul")
         self._charge("mul", a, b)
         self._charge_gather(a, b)
-        out = self.ctx.mul(a, b, self.keys.rlk, mesh=self._limb_mesh())
+        mesh = self._limb_mesh()
+        out = self.ctx.mul(a, b, self.keys.rlk, mesh=mesh)
         return self._set_d(out, max(self._d(a), self._d(b)) + 1)
 
     def mul_plain(self, a, vec):
@@ -563,7 +591,8 @@ class BFVBackend(_BackendBase):
         if arr.ndim == 2:
             # per-block plaintexts against a batch (fused broadcast_slot):
             # zero rows cover any shard padding lanes; a batch held
-            # sharded takes (and encodes) only its own lanes' rows
+            # sharded takes (and encodes) only its own lanes' rows, which
+            # BFVContext reduces mod the primes of the limbs it holds
             nphys = self._nblocks_phys(a)
             rows = np.zeros((nphys, self.slots), dtype=np.int64)
             rows[: arr.shape[0], : arr.shape[1]] = arr
@@ -611,16 +640,15 @@ class BFVBackend(_BackendBase):
         hops = bin(step % (self.slots // 2)).count("1")
         self._charge("rotate", a, mult=hops)
         self._charge_gather(a, mult=hops)      # one kswitch per pow-2 hop
-        return self._set_d(
-            self.ctx.rotate_rows(a, step, self.keys.gks,
-                                 mesh=self._limb_mesh()), self._d(a))
+        mesh = self._limb_mesh()
+        return self._set_d(self.ctx.rotate_rows(a, step, self.keys.gks, mesh=mesh),
+                           self._d(a))
 
     def swap_rows(self, a):
         self._charge("rotate", a)
         self._charge_gather(a)
-        return self._set_d(
-            self.ctx.swap_rows(a, self.keys.gks, mesh=self._limb_mesh()),
-            self._d(a))
+        mesh = self._limb_mesh()
+        return self._set_d(self.ctx.swap_rows(a, self.keys.gks, mesh=mesh), self._d(a))
 
 
 # ---------------------------------------------------------------------------

@@ -13,7 +13,8 @@ Two orthogonal axes of parallelism, on one 2-D `("data", "model")` grid:
   over "model" — except key-switching (relinearization after a ct-ct
   multiply, and every Galois rotation), the only cross-limb step in
   core/bfv.py, which gathers the centered decomposition digits along
-  "model" before the gadget fold.
+  "model" before the gadget fold (a multiply of held limbs gathers its
+  operands' limbs instead: the HPS tensor's float sums need them all).
 
 This module owns the runtime plumbing:
 
@@ -46,17 +47,21 @@ This module owns the runtime plumbing:
   runs the same program — the same seed gives every rank the same keys
   and the same block lists — and charges the same ledger, so a rank's
   `ledger_snapshot()` equals the logical context's but for its
-  `real_mesh` flag.  A batch stacked on the mesh is held sharded over
-  "data" (`place_batch`, as the reference's `batch_sharding` places
-  it): each rank stacks, holds and computes only its `nphys / D` lanes,
-  every limb of them.  Ranks exchange lanes only where the reference's
-  partitioning does: `sharded_fold` (a weighted sum of this rank's
-  lanes, then an all-reduce over "data"), the lane all-gather before a
-  batch is unstacked, decrypted or refreshed (BFVBackend), and the key
-  switch's digit all-gather over "model" among the ranks that hold the
-  same lanes (core/bfv.py: kswitch_gathered).  Keys, singletons and the
-  engine's block lists stay replicated.  A rank outside the mesh holds
-  whole batches and computes the one-device path.
+  `real_mesh` flag.  A batch stacked on the mesh is held as the
+  reference's `batch_sharding` places it (`place_batch`): each rank
+  stacks, holds and computes only its `nphys / D` lanes over "data",
+  and of them only its `k / M` limbs over "model" where k divides
+  (elsewhere every limb).  Each rank holds every key switch key by its
+  output-limb slice (`place_keys`, done once by the backend when it
+  first key-switches under such a mesh).  Ranks exchange lanes and limbs
+  only where the reference's partitioning does: `sharded_fold` (a
+  weighted sum of this rank's lanes, an all-reduce over "data", then
+  the folded singleton's limbs gathered over "model"), the lane and
+  limb all-gathers before a batch is unstacked, decrypted or refreshed
+  (BFVBackend), and the key switch's all-gathers over "model" among the
+  ranks that hold the same lanes (core/bfv.py).  Singletons, `sk`,
+  `pk` and the engine's block lists stay replicated.  A rank outside the
+  mesh holds whole batches and keys and computes the one-device path.
 
 Parity contract: padding lanes (block or limb) are exact additive
 identities, `_count`/`_nblocks` keep returning *live* lane counts, and
@@ -67,12 +72,13 @@ single-device path for every (shards, limb_shards) combination.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import math
 
 import torch
 
-from ..core.bfv import LaneShard
-from ..core.collectives import axis_index, mesh_axes, sum_axis, visible_ranks
+from ..core.bfv import Keys, KSwitchKey, LaneShard, LimbShard, model_limbs
+from ..core.collectives import axis_index, gather_axis, mesh_axes, sum_axis, visible_ranks
 from ..launch.mesh import make_query_mesh, make_scan_mesh
 from ..runtime.elastic import elastic_limb_plan, elastic_scan_plan
 
@@ -362,16 +368,18 @@ def stack_lanes(rows: list, lo: int, hi: int) -> torch.Tensor:
     return torch.stack(own + [torch.zeros_like(rows[0])] * (hi - lo - len(own)))
 
 
-def place_batch(rows: list, nphys: int, mesh) -> tuple[torch.Tensor, LaneShard | None]:
-    """This rank's lanes of the (nphys, 2, k, n) batch whose lanes are
+def place_batch(rows: list, nphys: int, mesh
+                ) -> tuple[torch.Tensor, LaneShard | None, LimbShard | None]:
+    """This rank's part of the (nphys, 2, k, n) batch whose lanes are
     `rows` then zero pads, placed on the query mesh as
-    `batch_sharding(mesh)` says: lanes over "data".  Limbs stay whole on
-    every rank (the key switch splits them over "model" itself).  Raises
-    when a dimension does not split evenly over its axis, or when the
-    rows lie on another device type than the mesh.  Returns (data,
-    lanes): a `LaneShard` with this rank's `nphys / D` lanes, or None and
-    every lane where the rank keeps the whole batch (outside the mesh,
-    or a "data" axis of one rank)."""
+    `batch_sharding(mesh)` says: lanes over "data", limbs over "model".
+    Only that part is ever materialised.  Raises when a dimension does
+    not split evenly over its axis, or when the rows lie on another
+    device type than the mesh.  Returns (data, lanes, limbs): a
+    `LaneShard` with this rank's `nphys / D` lanes, or None and every
+    lane where the rank keeps them all (outside the mesh, or a "data"
+    axis of one rank); a `LimbShard` with its `k / M` limbs, or None and
+    every limb (outside the mesh, or no "model" axis of more ranks)."""
     sizes = mesh_axes(mesh)
     shape = (nphys, *rows[0].shape)
     for dim, axis in zip(shape, batch_sharding(mesh)):
@@ -381,24 +389,59 @@ def place_batch(rows: list, nphys: int, mesh) -> tuple[torch.Tensor, LaneShard |
     if rows[0].device.type != mesh.device_type:
         raise ValueError(f"batch on {rows[0].device} but the mesh on "
                          f"{mesh.device_type}")
+    k = shape[2]
+    held = model_limbs(mesh, k)
+    limbs = None
+    if held is not None:
+        rows = [r[:, held[0]:held[1]] for r in rows]
+        limbs = LimbShard(*held, k, mesh)
     D = sizes.get("data", 1)
     if D == 1 or mesh.get_coordinate() is None:
-        return stack_lanes(rows, 0, nphys), None
+        return stack_lanes(rows, 0, nphys), None, limbs
     per = nphys // D
     lo = axis_index(mesh, "data") * per
-    return stack_lanes(rows, lo, lo + per), LaneShard(lo, lo + per, nphys, mesh)
+    return stack_lanes(rows, lo, lo + per), LaneShard(lo, lo + per, nphys, mesh), limbs
 
 
-def sharded_fold(data, live: int, mesh, lanes: LaneShard | None = None):
+def place_key(key: KSwitchKey, mesh) -> KSwitchKey:
+    """A key switch key as this rank holds it on `mesh`: its output-limb
+    slice [:, lo:hi] (a copy, so the whole can be freed), as the
+    reference's key switch reads it (`P(None, "model", None)`, the scan
+    step's `shard_inputs` too); the key as it is where the rank holds
+    every limb.  A key placed with other limbs raises."""
+    held = model_limbs(mesh, key.b.shape[0])
+    if key.limbs is not None:
+        if held is None or tuple(key.limbs) != held:
+            raise ValueError(f"a key held by output limbs {tuple(key.limbs)} cannot be placed "
+                             f"at limbs {held} of this mesh")
+        return key
+    if held is None:
+        return key
+    lo, hi = held
+    return KSwitchKey(b=key.b[:, lo:hi].contiguous(), a=key.a[:, lo:hi].contiguous(),
+                      limbs=held)
+
+
+def place_keys(keys: Keys, mesh) -> Keys:
+    """`keys` with `rlk` and every Galois key placed by `place_key`; the
+    secret and public keys stay whole."""
+    return dataclasses.replace(keys, rlk=place_key(keys.rlk, mesh),
+                               gks={g: place_key(key, mesh) for g, key in keys.gks.items()})
+
+
+def sharded_fold(data, live: int, mesh, lanes: LaneShard | None = None,
+                 limbs: LimbShard | None = None):
     """Fold a padded batch over the "data" axis: this rank's lanes,
     weighted by 0/1 so that the pads (global lanes >= `live`) drop out,
-    summed, then all-reduced over "data"; limbs stay whole on every
-    rank.  `data` is this rank's lanes of a batch held sharded when
-    `lanes` is given, else the whole (nphys, 2, k, n) batch, of which
-    each rank sums its own lanes (a rank outside the mesh sums every
-    lane itself).  Returns the raw (2, k, n) sum — the caller reduces
-    mod q (residues are < 2^30, so even ~190 int64 partial sums cannot
-    overflow before the reduction)."""
+    summed, then all-reduced over "data".  `data` is this rank's lanes of
+    a batch held sharded when `lanes` is given, else the whole
+    (nphys, 2, ., n) batch, of which each rank sums its own lanes (a rank
+    outside the mesh sums every lane itself); the sums are limb-local, so
+    a batch held over "model" (`limbs`) sums its own limbs, and the
+    folded singleton's limbs are then all-gathered over "model".
+    Returns the raw (2, k, n) sum — the caller reduces mod q (residues
+    are < 2^30, so even ~190 int64 partial sums cannot overflow before
+    the reduction)."""
     outside = mesh.get_coordinate() is None
     if lanes is not None:
         lo = lanes.lo
@@ -410,4 +453,7 @@ def sharded_fold(data, live: int, mesh, lanes: LaneShard | None = None):
         data = data[lo:lo + per]
     weights = (torch.arange(lo, lo + data.shape[0], device=data.device) < live).to(data.dtype)
     local = (data * weights[:, None, None, None]).sum(0)
-    return local if outside else sum_axis(local, mesh, "data")
+    if outside:
+        return local
+    total = sum_axis(local, mesh, "data")
+    return total if limbs is None else gather_axis(total, limbs.mesh, "model", dim=-2)

@@ -68,10 +68,11 @@ def make_scan_mesh(shards: int, device=None):
 
 def make_query_mesh(data: int, model: int, device=None):
     """2-D ("data", "model") mesh for sharded query execution: the block
-    lanes of every (nblocks, 2, k, n) batch held over "data"
-    (engine/sharded.place_batch), the key switch's k RNS limbs split over
-    "model", so only its digit and output all-gathers cross that axis
-    (core/bfv.py: kswitch_gathered)."""
+    lanes of every (nblocks, 2, k, n) batch held over "data", its k RNS
+    limbs over "model" (engine/sharded.place_batch), and every key switch
+    key by its output-limb slice (engine/sharded.place_key), so only the
+    key switch's and the multiply's all-gathers and the engine's gathers
+    cross "model" (core/bfv.py)."""
     return _device_mesh((data, model), ("data", "model"), device)
 
 

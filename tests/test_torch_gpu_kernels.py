@@ -17,8 +17,8 @@ tensors restore onto the card byte for byte.  The encrypted-scan step
 (`launch/nshedb_step.py`) on the card equals a plain int64 contraction
 and its CPU run; a 2-rank gloo mesh with CUDA tensors folds and
 key-switches BFV micro ciphertexts as one device does, computes on BFV
-batches held sharded over it (each rank its own lanes) as one device
-does, and runs the scan step sharded over it as one device does; TPC-H Q14's
+batches held sharded over it (each rank its own lanes, and on a (1, 2)
+mesh its own limbs of them) as one device does, and runs the scan step sharded over it as one device does; TPC-H Q14's
 legacy body on the card equals its CPU run and the oracle.  The CPU tests of the same
 modules hold the plain versions against the JAX package.
 """
@@ -385,11 +385,14 @@ def test_cuda_query_step_equals_cpu(cuda_device, mode):
 @pytest.mark.gpu
 def test_cuda_gloo_mesh_folds_and_key_switches(cuda_device, tmp_path):
     """Two gloo ranks holding CUDA tensors: `kswitch_gathered` on a (1, 2)
-    mesh and `sharded_fold`, and a BFV micro fold under a real 2-rank
-    scan mesh, each equal to the one-device result."""
+    mesh with the whole key and with the rank's output-limb slice of it,
+    the key switch of a batch held as the rank's limbs, and
+    `sharded_fold` of a batch whole and held so; and a BFV micro fold
+    under a real 2-rank scan mesh, each equal to the one-device result."""
     res = Ranks(2, ["kswitch", "bfv_fold"], tmp_path, device="cuda").results()
     for got in res["kswitch"]:
-        assert got == {"batch": True, "single": True, "fold": True}
+        assert got == {"batch": True, "single": True, "batch_placed": True,
+                       "single_placed": True, "held": True, "fold": True, "fold_limbs": True}
     for got in res["bfv_fold"]:
         assert got["mesh"] == {"device_type": "cuda", "axes": ("data",), "shape": (2,)}
         np.testing.assert_array_equal(got["got"], got["base"])
@@ -399,18 +402,24 @@ def test_cuda_gloo_mesh_folds_and_key_switches(cuda_device, tmp_path):
 @pytest.mark.gpu
 def test_cuda_gloo_batches_held_sharded(cuda_device, tmp_path):
     """Two gloo ranks holding CUDA tensors, a BFV micro batch of 3 blocks
-    (4 lanes) held sharded over a ("data",) mesh of 2, 2 lanes a rank:
-    add, sub, mul_scalar, mul, rotate, sum_slots, a per-lane mul_plain,
-    fold, unstack and decrypt (`batch_ops_run`) give every rank the
-    residues, noise, decrypts and OpStats of the same calls on one
-    device, the card."""
+    held sharded over a ("data",) mesh of 2 (4 lanes, 2 a rank, every
+    limb) and over a (1, 2) ("data", "model") mesh (3 lanes, 6 of 12
+    limbs a rank, the keys by output-limb slice): add, sub, mul_scalar,
+    mul, rotate, sum_slots, a per-lane mul_plain, fold, unstack and
+    decrypt (`batch_ops_run`) give every rank the residues, noise,
+    decrypts and OpStats of the same calls on one device, the card."""
     exp = batch_ops_run(tbackend.BFVBackend(make_params(**MICRO), seed=11, device="cuda"))
-    for got in Ranks(2, ["batch_ops"], tmp_path, device="cuda").results()["batch_ops"]:
-        assert got["mesh"] == {"device_type": "cuda", "axes": ("data",), "shape": (2,)}
-        assert got["nphys"] == 4 and got["held"] == [2, 2] and exp["held"] == [3, 3]
-        for key in BATCH_KEYS:
-            np.testing.assert_array_equal(got[key], exp[key], err_msg=key)
-        assert got["stats"] == exp["stats"]
+    assert exp["held"] == [3, 3] and exp["limbs"] == [12, 12]
+    res = Ranks(2, ["batch_ops", "batch_ops_1x2"], tmp_path, device="cuda").results()
+    meshes = {"batch_ops": (("data",), (2,), 4, [2, 2], [12, 12]),
+              "batch_ops_1x2": (("data", "model"), (1, 2), 3, [3, 3], [6, 6])}
+    for case, (axes, shape, nphys, held, limbs) in meshes.items():
+        for got in res[case]:
+            assert got["mesh"] == {"device_type": "cuda", "axes": axes, "shape": shape}
+            assert got["nphys"] == nphys and got["held"] == held and got["limbs"] == limbs
+            for key in BATCH_KEYS:
+                np.testing.assert_array_equal(got[key], exp[key], err_msg=f"{case}: {key}")
+            assert got["stats"] == exp["stats"]
 
 
 @pytest.mark.gpu

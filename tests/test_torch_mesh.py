@@ -6,11 +6,13 @@ here in `gloo` ranks on the CPU (tests/torch_mesh_ranks.py).
 Each mesh shape's ranks start once per module and run all its cases: two
 ranks (a ("data",) scan mesh of 2, a (1, 2) query mesh) and four (a
 (2, 2) query mesh).  Every rank runs the same program, holding only its
-own lanes of every batch stacked on a mesh with a "data" axis of 2; its
-gathered residues, decrypts and `OpStats` must equal the JAX package's
-unsharded run (tolerance 0), its `ExecReport` and ledger snapshot the
-port's logical context at the same cell (compared with `==`, the
-ledger's `real_mesh` flag aside).  The JAX runs, the port's one-device
+own lanes of every batch stacked on a mesh with a "data" axis of 2, and
+of them only its 6 of the 12 limbs on a "model" axis of 2, and every key
+switch key by its output-limb slice there; its gathered residues,
+decrypts and `OpStats` must equal the JAX package's unsharded run
+(tolerance 0), its `ExecReport` and ledger snapshot the port's logical
+context at the same cell (compared with `==`, the ledger's `real_mesh`
+flag aside).  The JAX runs, the port's one-device
 runs and the logical ones run here, in the parent, where no process
 group exists.
 """
@@ -71,9 +73,11 @@ def started(tmp_path_factory):
     """Two and four gloo ranks, started before the reference runs so that
     both proceed together."""
     started = {2: Ranks(2, ["fold", "bfv_fold", "mock_q1", "bfv_1x2", "auto", "kswitch",
-                            "compressed_psum", "batch_ops", "refresh_lanes"],
+                            "compressed_psum", "batch_ops", "refresh_lanes", "batch_ops_1x2",
+                            "refresh_lanes_1x2", "limbs_held"],
                         tmp_path_factory.mktemp("mesh2")),
-               4: Ranks(4, ["bfv_2x2", "auto", "kswitch", "batch_ops", "refresh_lanes"],
+               4: Ranks(4, ["bfv_2x2", "auto", "kswitch", "batch_ops", "refresh_lanes",
+                            "limbs_held"],
                         tmp_path_factory.mktemp("mesh4"))}
     yield started
     for group in started.values():
@@ -165,10 +169,11 @@ def test_mock_query_with_real_mesh(ranks):
 @pytest.mark.parametrize("cell", MESH_CELLS, ids=lambda c: f"{c[0]}x{c[1]}")
 @pytest.mark.parametrize("pname", PLANS)
 def test_bfv_micro_2d_parity(ranks, bfv_reference, pname, cell):
-    """Real ciphertexts through `kswitch_gathered` on a (1, 2) and a
-    (2, 2) mesh: every rank's decrypts and OpStats equal the JAX
-    package's unsharded run and the oracle, its report and ledger the
-    port's logical context's; digits were gathered."""
+    """Real ciphertexts on a (1, 2) and a (2, 2) mesh, every stacked
+    batch held as its rank's lanes and 6 of its 12 limbs, every key as
+    its (12, 6, 128) output-limb slice: every rank's decrypts and OpStats
+    equal the JAX package's unsharded run and the oracle, its report and
+    ledger the port's logical context's; digits were gathered."""
     world, case = (2, "bfv_1x2") if cell == (1, 2) else (4, "bfv_2x2")
     jax_ = bfv_reference["jax"][pname]
     logical = bfv_reference["logical"][(pname, cell)]
@@ -179,20 +184,28 @@ def test_bfv_micro_2d_parity(ranks, bfv_reference, pname, cell):
         assert run["report"] == logical["report"]
         assert _ledger_as_logical(run["ledger"]) == logical["ledger"]
         assert run["ledger"]["gathers"] > 0 and run["ledger"]["gather_bytes"] > 0
-        # a batch of many lanes is held nphys / D lanes a rank ("data" of D)
-        assert any(nphys > 1 for nphys, _ in run["stacked"])
+        # a batch of many lanes is held nphys / D lanes a rank ("data" of
+        # D), and k / M limbs of them ("model" of M)
+        assert any(nphys > 1 for nphys, _, _ in run["stacked"])
         assert all(held == (nphys // cell[0] if nphys > 1 else 1)
-                   for nphys, held in run["stacked"]), run["stacked"]
+                   for nphys, held, _ in run["stacked"]), run["stacked"]
+        assert all(limbs == (MICRO["k"] // cell[1] if nphys > 1 else MICRO["k"])
+                   for nphys, _, limbs in run["stacked"]), run["stacked"]
+        assert run["key_limbs"] == [(MICRO["k"], MICRO["k"] // cell[1])]
 
 
 def test_kswitch_gathered_equals_one_device(ranks):
     """A 4-lane batch and a single polynomial that every rank holds (limbs
-    split over "model"), and `sharded_fold` of 3 live lanes (this rank's
-    lanes summed, then over "data"), each against the one-device
-    arithmetic."""
+    split over "model"), with the whole key and with the rank's output-
+    limb slice of it; the batch held as the rank's limbs (digits
+    gathered, outputs held); and `sharded_fold` of 3 live lanes (this
+    rank's lanes summed, then over "data"), whole and held as the rank's
+    limbs, each against the one-device arithmetic."""
     for world in (2, 4):
         for res in ranks[world]["kswitch"]:
-            assert res == {"batch": True, "single": True, "fold": True}
+            assert res == {"batch": True, "single": True, "batch_placed": True,
+                           "single_placed": True, "held": True, "fold": True,
+                           "fold_limbs": True}
 
 
 MESH_OF = {2: {"device_type": "cpu", "axes": ("data",), "shape": (2,)},
@@ -209,25 +222,93 @@ def _equal_runs(got, exp, keys):
 @pytest.mark.parametrize("case", ["batch_ops", "refresh_lanes"])
 def test_batches_held_sharded_equal_one_device(ranks, bfv_reference, case, world):
     """A 3-block BFV micro batch (4 lanes) held sharded on a ("data",) 2
-    and a (2, 2) mesh, 2 lanes a rank.  `batch_ops`: add, sub of a single
-    ciphertext, mul_scalar, mul, rotate, sum_slots and a per-lane
-    mul_plain, then fold, unstack and decrypt; `refresh_lanes`:
-    `refresh_inplace` on the global lanes [0, 2] and on every lane.
-    Every rank's gathered residues, noise, decrypts and OpStats equal the
-    JAX package's and the port's one-device run bit for bit, and so do
-    the residues of the next encryption after the refreshes."""
+    and a (2, 2) mesh, 2 lanes a rank, and on the (2, 2) mesh 6 of 12
+    limbs of them.  `batch_ops`: add, sub of a single ciphertext,
+    mul_scalar, mul, rotate, sum_slots and a per-lane mul_plain, then
+    fold, unstack and decrypt; `refresh_lanes`: `refresh_inplace` on the
+    global lanes [0, 2] and on every lane.  Every rank's gathered
+    residues, noise, decrypts and OpStats equal the JAX package's and the
+    port's one-device run bit for bit, and so do the residues of the next
+    encryption after the refreshes."""
     ref = bfv_reference[case]
     keys = BATCH_KEYS if case == "batch_ops" else REFRESH_KEYS
     if case == "refresh_lanes":
         assert np.ndim(ref["jax"]["lanes_noise"]) == 1      # lanes 0, 2 fresh, 1 not
     _equal_runs(ref["port"], ref["jax"], keys)
+    limbs = MICRO["k"] // (2 if world == 4 else 1)
     for res in ranks[world][case]:
         _equal_runs(res, ref["jax"], keys)
         if case == "batch_ops":
             assert res["mesh"] == MESH_OF[world]
-            assert res["nphys"] == 4 and res["held"] == [2, 2]
+            assert res["nphys"] == 4 and res["held"] == [2, 2] and res["limbs"] == [limbs] * 2
         else:
             assert res["lanes_held"] == res["whole_held"] == 2
+            assert res["lanes_limbs"] == res["whole_limbs"] == limbs
+
+
+@pytest.mark.parametrize("case", ["batch_ops", "refresh_lanes"])
+def test_batches_held_over_model_equal_one_device(ranks, bfv_reference, case):
+    """The same batch on a (1, 2) mesh of two ranks: every lane (3, no
+    pad), 6 of 12 limbs a rank; gathered residues, noise, decrypts,
+    OpStats and the next encryption equal the JAX package's one-device
+    run bit for bit."""
+    ref = bfv_reference[case]
+    keys = BATCH_KEYS if case == "batch_ops" else REFRESH_KEYS
+    for res in ranks[2][case + "_1x2"]:
+        _equal_runs(res, ref["jax"], keys)
+        if case == "batch_ops":
+            assert res["mesh"] == _desc(("data", "model"), (1, 2))
+            assert res["nphys"] == 3 and res["held"] == [3, 3] and res["limbs"] == [6, 6]
+        else:
+            assert res["lanes_held"] == res["whole_held"] == 3
+            assert res["lanes_limbs"] == res["whole_limbs"] == 6
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_keys_held_by_output_limb_slice(ranks, world):
+    """After its first key switch on a (1, 2) / (2, 2) mesh the backend
+    holds `rlk` and every Galois key as (12, 6, 128): rank r of "model"
+    the output limbs [6r, 6r + 6), equal to the whole key's slice and to
+    `sharded.place_keys` of the whole keys, which a caller keeps whole."""
+    M = 2
+    for rank, res in enumerate(ranks[world]["limbs_held"]):
+        lo = (rank % M) * 6
+        assert res["limbs"] == (lo, lo + 6, 12)
+        assert res["key_shapes"] == [(12, 6, 128)] and res["key_limbs"] == [(lo, lo + 6)]
+        assert res["keys_equal_slices"] and res["whole_keys_kept"] and res["place_keys_equal"]
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_placed_key_refused_off_its_slice(ranks, world):
+    """A key held by output-limb slice raises on the one-device key
+    switch, multiply and rotation, and where another rank's limbs are
+    asked of it (a batch's multiply, a singleton's key switch)."""
+    for res in ranks[world]["limbs_held"]:
+        msgs = res["refused"]
+        for name in ("kswitch_inner", "one_device_mul", "one_device_rotate"):
+            assert "needs whole (k, k, n) keys, got (12, 6, 128)" in msgs[name], name
+        for name in ("other_slice", "other_slice_single"):
+            assert "cannot key-switch limbs [" in msgs[name], name
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_limb_held_batch_refuses_other_limbs(ranks, world):
+    """A batch held over "model" raises against the same lanes holding
+    every limb."""
+    for res in ranks[world]["limbs_held"]:
+        msg = res["refused"]["other_limbs"]
+        assert 'held over "model" (limbs [' in msg and "not every limb of" in msg
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_limb_held_batch_refused_until_gathered(ranks, world):
+    """unstack_cts, fold_add and decrypt refuse a batch held over "model";
+    gathered, it unstacks into its 3 live lanes."""
+    for res in ranks[world]["limbs_held"]:
+        for name in ("unstack_cts", "fold_add", "decrypt"):
+            msg = res["refused"][name]
+            assert "needs every limb" in msg and "gather them first" in msg, name
+        assert res["unstacked"] == 3
 
 
 @pytest.mark.parametrize("world", [2, 4])

@@ -3,8 +3,10 @@ processes that join one `gloo` process group (a `file://` rendezvous in
 a directory of the caller's, so concurrent test workers never collide),
 run named cases and hand their results back.  Every rank runs the same
 program: a batch the query engine stacks on a mesh is held sharded over
-its "data" axis (each rank holds its own lanes), and the scan step
-(`case_scan_step`) holds only each rank's shard.
+its "data" axis (each rank holds its own lanes) and, where k divides,
+its "model" axis (each rank holds its own limbs of them), the backend's
+key switch keys by output-limb slice; the scan step (`case_scan_step`)
+holds only each rank's shard.
 
 Imports numpy and torch at the top and the port inside the ranks (no
 JAX), so the card's tests (tests/test_torch_gpu_kernels.py) use it too;
@@ -53,15 +55,16 @@ def _bfv_micro_db(device):
 def _bfv_micro_runs(device, cells):
     """g1 / j1 / f1 of `torch_cases.bfv_shard_plans` through the executor
     at each (shards, limb_shards) cell, with the mesh "auto" attaches;
-    each run's `stacked` lists the (global, held) lane counts of every
-    batch it stacked."""
+    each run's `stacked` lists the (global lanes, held lanes, held limbs)
+    of every batch it stacked, and `key_limbs` the (digits, output limbs)
+    of every key the backend held after it."""
     from torch_cases import bfv_shard_plans, sharded_run
     mods, (db, _, _) = _bfv_micro_db(device)
     stack, stacked = db.bk.stack_blocks, set()
 
     def recording(blocks):
         batch = stack(blocks)
-        stacked.add((batch.nphys, int(batch.data.shape[0])))
+        stacked.add((batch.nphys, int(batch.data.shape[0]), int(batch.data.shape[-2])))
         return batch
 
     db.bk.stack_blocks = recording
@@ -69,8 +72,14 @@ def _bfv_micro_runs(device, cells):
     for cell in cells:
         for pname, plan in bfv_shard_plans(mods["plan"]).items():
             stacked.clear()
-            out[(pname, cell)] = dict(sharded_run(mods, db, plan, cell), stacked=sorted(stacked))
+            out[(pname, cell)] = dict(sharded_run(mods, db, plan, cell), stacked=sorted(stacked),
+                                      key_limbs=_key_limbs(db.bk.keys))
     return out
+
+
+def _key_limbs(keys) -> list:
+    """(digits, output limbs) of `rlk` and of every Galois key."""
+    return sorted({tuple(key.b.shape[:2]) for key in (keys.rlk, *keys.gks.values())})
 
 
 def case_fold(device):
@@ -132,6 +141,7 @@ def batch_ops_run(bk, ctx=None, activate=None) -> dict:
     with activate(bk, ctx) if ctx is not None else contextlib.nullcontext():
         x, y = bk.stack_blocks(cts), bk.stack_blocks(cts[::-1])
         out["nphys"], out["held"] = x.nphys, [int(b.data.shape[0]) for b in (x, y)]
+        out["limbs"] = [int(b.data.shape[-2]) for b in (x, y)]
         res = {"add": bk.add(x, y), "sub": bk.sub(x, single), "mul_scalar": bk.mul_scalar(x, 3),
                "mul": bk.mul(x, y), "rotate": bk.rotate(x, 3), "sum_slots": bk.sum_slots(x),
                "mul_plain": bk.mul_plain(x, basis)}
@@ -148,9 +158,9 @@ def refresh_run(bk, ctx=None, activate=None) -> dict:
     """`refresh_inplace` of a `BATCH_BLOCKS`-block batch of `bk` (times 3,
     so that its noise is no longer fresh) on the global lanes [0, 2], and
     of every lane of a second one, under shard context `ctx` or none:
-    each batch's live residues, noise and decrypts after, the lanes each
-    holds, and the residues of the next encryption (equal only if the
-    seeded generator drew the same as on one device)."""
+    each batch's live residues, noise and decrypts after, the lanes and
+    limbs each holds, and the residues of the next encryption (equal only
+    if the seeded generator drew the same as on one device)."""
     import contextlib
     import dataclasses
     cts = [bk.encrypt(np.arange(bk.slots) % 7 + i) for i in range(BATCH_BLOCKS)]
@@ -164,20 +174,28 @@ def refresh_run(bk, ctx=None, activate=None) -> dict:
             out[name + "_noise"] = np.asarray(batch.noise)
             out[name + "_decrypt"] = bk.decrypt(batch)
             out[name + "_held"] = int(batch.data.shape[0])
+            out[name + "_limbs"] = int(batch.data.shape[-2])
     out["next"] = _residues(bk.encrypt(np.arange(bk.slots) % 3))
     out["stats"] = dataclasses.asdict(bk.stats)
     return out
 
 
-def _batch_backend(device, world):
+# the ("data", "model") grid the batch cases run on, by world: ("data",)
+# 2 on two ranks (limbs whole), 2 x 2 on four (6 of 12 limbs a rank)
+BATCH_GRID = {2: (2, 1), 4: (2, 2)}
+# the grid each world's held-limb cases run on (6 of 12 limbs a rank)
+LIMB_GRID = {2: (1, 2), 4: (2, 2)}
+
+
+def _batch_backend(device, grid):
     """A BFV micro backend (seed 11, as the JAX reference's) and the shard
-    context the batch cases run under: shards=2 on a ("data",) mesh of 2
-    ranks, 2 x 2 ("data", "model") on 4."""
+    context of `grid` (shards, limb_shards) the batch cases run under,
+    with the mesh "auto" attaches: ("data",) for (2, 1), ("data",
+    "model") for the others."""
     from repro_torch.core.params import make_params
     mods = _port_mods()
     bk = mods["backend"].BFVBackend(make_params(**MICRO), seed=11, device=device)
-    limb_shards = 1 if world == 2 else 2
-    ctx = mods["sharded"].make_shard_context(2, limb_shards=limb_shards, limbs=MICRO["k"],
+    ctx = mods["sharded"].make_shard_context(grid[0], limb_shards=grid[1], limbs=MICRO["k"],
                                              ring_n=MICRO["n"], device=bk.device)
     return mods, bk, ctx
 
@@ -194,12 +212,19 @@ def _refused(bk, ctx, activate) -> dict:
                  "other_lanes": lambda: bk.ctx.mul(bk.stack_blocks(cts), x, bk.keys.rlk),
                  "unstack_cts": lambda: bk.ctx.unstack_cts(x),
                  "fold_add": lambda: bk.ctx.fold_add(x)}
-        for name, call in calls.items():
-            try:
-                call()
-                out[name] = None
-            except ValueError as e:
-                out[name] = str(e)
+        out.update(_raised(calls))
+    return out
+
+
+def _raised(calls: dict) -> dict:
+    """{name: the ValueError's message, or None when the call returned}."""
+    out = {}
+    for name, call in calls.items():
+        try:
+            call()
+            out[name] = None
+        except ValueError as e:
+            out[name] = str(e)
     return out
 
 
@@ -207,7 +232,7 @@ def case_batch_ops(device):
     """`batch_ops_run` on this group's shard context (batches held
     sharded), the mesh, and `_refused`."""
     import torch.distributed as dist
-    mods, bk, ctx = _batch_backend(device, dist.get_world_size())
+    mods, bk, ctx = _batch_backend(device, BATCH_GRID[dist.get_world_size()])
     out = batch_ops_run(bk, ctx, mods["sharded"].activate)
     out["mesh"] = _mesh_desc(ctx.mesh)
     out["refused"] = _refused(bk, ctx, mods["sharded"].activate)
@@ -217,8 +242,71 @@ def case_batch_ops(device):
 def case_refresh_lanes(device):
     """`refresh_run` on this group's shard context."""
     import torch.distributed as dist
-    mods, bk, ctx = _batch_backend(device, dist.get_world_size())
+    mods, bk, ctx = _batch_backend(device, BATCH_GRID[dist.get_world_size()])
     return refresh_run(bk, ctx, mods["sharded"].activate)
+
+
+def case_batch_ops_1x2(device):
+    """`batch_ops_run` on a (1, 2) ("data", "model") mesh of two ranks:
+    every lane, 6 of 12 limbs a rank."""
+    mods, bk, ctx = _batch_backend(device, (1, 2))
+    return dict(batch_ops_run(bk, ctx, mods["sharded"].activate), mesh=_mesh_desc(ctx.mesh))
+
+
+def case_refresh_lanes_1x2(device):
+    """`refresh_run` on a (1, 2) mesh of two ranks."""
+    mods, bk, ctx = _batch_backend(device, (1, 2))
+    return refresh_run(bk, ctx, mods["sharded"].activate)
+
+
+def case_limbs_held(device):
+    """On this group's `LIMB_GRID` mesh: the backend's keys after its
+    first key switch there (each (k, k/M, n), against the whole keys'
+    output-limb slices and `sharded.place_keys` of them), and what a batch held over "model" and a placed
+    key refuse: the one-device key switch, multiply and rotation with a
+    placed key, a placed key with another rank's limbs (as a reshard
+    onto a new "model" axis would give it), a batch holding other limbs
+    (the same lanes gathered whole), unstack_cts / fold_add / decrypt of
+    every lane before its limbs are gathered; and the lanes unstacked
+    after a gather."""
+    import dataclasses
+    import torch.distributed as dist
+    mods, bk, ctx = _batch_backend(device, LIMB_GRID[dist.get_world_size()])
+    whole = bk.keys
+    cts = [bk.encrypt(np.arange(bk.slots) % 7 + i) for i in range(BATCH_BLOCKS)]
+    with mods["sharded"].activate(bk, ctx):
+        x = bk.stack_blocks(cts)
+        bk.mul(x, x)
+    keys = bk.keys
+    pairs = [(keys.rlk, whole.rlk)] + [(keys.gks[g], whole.gks[g]) for g in whole.gks]
+    lo, hi = keys.rlk.limbs
+    other = (hi % MICRO["k"], hi % MICRO["k"] + hi - lo)
+    g = next(iter(keys.gks))
+    single = cts[0]
+    lanes_whole = bk.ctx.gather_lanes(x)      # every lane, this rank's limbs
+    out = {"limbs": tuple(x.limbs[:3]),
+           "key_shapes": sorted({tuple(p.b.shape) for p, _ in pairs}),
+           "key_limbs": sorted({p.limbs for p, _ in pairs}),
+           "keys_equal_slices": all(torch.equal(p.b, w.b[:, lo:hi])
+                                    and torch.equal(p.a, w.a[:, lo:hi]) for p, w in pairs),
+           "whole_keys_kept": all(w.b.shape[1] == MICRO["k"] for _, w in pairs)}
+    again = mods["sharded"].place_keys(whole, ctx.mesh)
+    out["place_keys_equal"] = all(
+        torch.equal(p.b, q.b) and torch.equal(p.a, q.a) and p.limbs == q.limbs
+        for p, q in zip((keys.rlk, *keys.gks.values()), (again.rlk, *again.gks.values())))
+    out["refused"] = _raised({
+        "kswitch_inner": lambda: bk.ctx._kswitch_inner(single.data[1], keys.rlk.b, keys.rlk.a),
+        "one_device_mul": lambda: bk.ctx.mul(single, single, keys.rlk),
+        "one_device_rotate": lambda: bk.ctx.apply_galois(single, g, keys.gks[g]),
+        "other_slice": lambda: bk.ctx.mul(x, x, dataclasses.replace(keys.rlk, limbs=other)),
+        "other_slice_single": lambda: bk.ctx.kswitch_gathered(
+            single.data[1], dataclasses.replace(keys.rlk, limbs=other), ctx.mesh),
+        "other_limbs": lambda: bk.ctx.add(x, bk.ctx.gather_limbs(x)),
+        "unstack_cts": lambda: bk.ctx.unstack_cts(lanes_whole),
+        "fold_add": lambda: bk.ctx.fold_add(lanes_whole),
+        "decrypt": lambda: bk.ctx.decrypt(lanes_whole, keys.sk)})
+    out["unstacked"] = len(bk.ctx.unstack_cts(bk.ctx.gather(x)))
+    return out
 
 
 def case_mock_q1(device):
@@ -267,13 +355,16 @@ def case_auto(device):
 
 def case_kswitch(device):
     """`BFVContext.kswitch_gathered` of a 4-lane batch every rank holds
-    and of a single polynomial on this group's (data, model) mesh, and
-    `sharded_fold` of the batch, against the one-device key switch and
-    sum."""
+    and of a single polynomial on this group's (data, model) mesh, with
+    the whole key and with this rank's output-limb slice of it
+    (`sharded.place_key`); the key switch of the batch held as this
+    rank's limbs (its digits gathered, its outputs held); and
+    `sharded_fold` of the batch, whole and held as this rank's limbs,
+    against the one-device key switch and sum."""
     import torch.distributed as dist
-    from repro_torch.core.bfv import BFVContext
+    from repro_torch.core.bfv import BFVContext, LimbShard
     from repro_torch.core.params import make_params
-    from repro_torch.engine.sharded import sharded_fold
+    from repro_torch.engine.sharded import place_key, sharded_fold
     from repro_torch.launch.mesh import make_query_mesh
     world = dist.get_world_size()
     ctx = BFVContext(make_params(**MICRO), seed=5, device=device)
@@ -282,13 +373,24 @@ def case_kswitch(device):
     q = np.asarray(ctx.params.Q.q)[:, None]
     polys = torch.from_numpy(rng.integers(0, q, (4, ctx.params.k, ctx.params.n))).to(device)
     mesh = make_query_mesh(world // 2 if world > 2 else 1, 2, device=device)
+    placed = place_key(keys.rlk, mesh)
+    lo, hi = placed.limbs
+    limbs = LimbShard(lo, hi, ctx.params.k, mesh)
+    def equal(got, exp):
+        return all(torch.equal(g, e) for g, e in zip(got, exp))
+
     out = {}
     for name, poly in (("batch", polys), ("single", polys[0])):
-        got = ctx.kswitch_gathered(poly, keys.rlk, mesh)
         exp = ctx._kswitch_inner(poly, keys.rlk.b, keys.rlk.a)
-        out[name] = all(torch.equal(g, e) for g, e in zip(got, exp))
+        out[name] = equal(ctx.kswitch_gathered(poly, keys.rlk, mesh), exp)
+        out[name + "_placed"] = equal(ctx.kswitch_gathered(poly, placed, mesh), exp)
+    exp = ctx._kswitch_inner(polys, keys.rlk.b, keys.rlk.a)
+    out["held"] = equal(ctx._kswitch_held(polys[..., lo:hi, :], placed, limbs),
+                        [e[..., lo:hi, :] for e in exp])
     data = torch.stack([polys, polys.flip(0)], dim=1)          # (4, 2, k, n)
     out["fold"] = torch.equal(sharded_fold(data, 3, mesh), data[:3].sum(0))
+    out["fold_limbs"] = torch.equal(sharded_fold(data[:, :, lo:hi].contiguous(), 3, mesh,
+                                                 limbs=limbs), data[:3].sum(0))
     return out
 
 
@@ -387,7 +489,8 @@ CASES = {fn.__name__[5:]: fn for fn in (case_fold, case_bfv_fold, case_mock_q1,
                                          case_bfv_1x2, case_bfv_2x2, case_auto,
                                          case_kswitch, case_compressed_psum,
                                          case_scan_step, case_batch_ops,
-                                         case_refresh_lanes)}
+                                         case_refresh_lanes, case_batch_ops_1x2,
+                                         case_refresh_lanes_1x2, case_limbs_held)}
 
 
 def _rank_main(rank, world, work_dir, names, device):
