@@ -30,8 +30,8 @@ full width and depth, and its training path at starcoder2-3b's:
             profile;
   legacy    the five queries with hand-written bodies only, on the same
             keys: TPC-H Q4, Q14, Q17, Q5 and Q8 through `run_qN` over all
-            eight tables (LINEITEM 32,768 rows, the parents cut:
-            `LEGACY_SCALE`, a few rows planted: `legacy_tables`), each
+            eight tables (LINEITEM 4,096 rows in one block, the parents
+            cut: `LEGACY_SCALE`, a few rows planted: `legacy_tables`), each
             equal to its oracle with a field that is not 0, its stages
             and join hops timed (each outermost engine call ended by a
             synchronize); beside each, the same
@@ -81,7 +81,7 @@ full width and depth, and its training path at starcoder2-3b's:
             modes: every rank's aggregate equal to the one-device
             `query_step` on the card, its collective bytes equal to the
             dry-run's count (`launch/dryrun.measure_step`) and its peak
-            beside the dry-run's; then one rank under NCCL;
+            beside the dry-run's; beside the ranks, one rank under NCCL;
   train     (a) the attention gradient (flash_attn forward, torch-op
             backward) against autograd through the plain version on the
             card, float32, four cases up to S = 4500; (b) starcoder2-3b at
@@ -217,9 +217,20 @@ def phase_env() -> None:
 
 
 # ----------------------------------------------------------------- kernels
+def _draw_residues(gen, q, shape):
+    """Residues below q (a (limbs, 1) int64 tensor) in `shape`, drawn on
+    q's device from the torch generator `gen`: a draw on the host at the
+    paper's shapes costs tens of seconds."""
+    x = torch.randint(0, 1 << 62, tuple(shape), generator=gen, device=q.device)
+    return x.remainder_(q)
+
+
 def _rand_limbs(rng, primes, lead, n, dev):
-    q = np.array(primes, dtype=np.int64)[:, None]
-    return torch.from_numpy(rng.integers(0, q, tuple(lead) + (len(primes), n))).to(dev)
+    """(*lead, len(primes), n) residues on `dev`, from a generator seeded
+    by the next draw of `rng`."""
+    gen = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 62)))
+    q = torch.tensor(primes, dtype=torch.int64, device=dev)[:, None]
+    return _draw_residues(gen, q, tuple(lead) + (len(primes), n))
 
 
 def _check_equal(name, got, exp, what) -> int:
@@ -1053,12 +1064,13 @@ def workload_mock() -> tuple:
 # The paper's join queries on real ciphertexts: LINEITEM at the paper's
 # 32,768 rows (one block, §5.1), its parents cut.  A join hop costs one
 # EQ circuit, one slot broadcast and one product per parent row, so the
-# parents set the phase's time: ORDERS 256 and PART 192 (of Scale()'s
-# 8,192 and 1,024).  At PART 192 some part meets a Q19 branch (its
-# revenue is not 0).  ORDERS 512 ran the whole script in 1,140 s of its
-# 1,200 s on an H100 (Q12's hop 0.17 s a key); at 256 the bank and the
-# broadcasts still enter their circuits in lane chunks.
-TPCH_SCALE = dict(lineitem=32768, orders=256, part=192)
+# parents set the phase's time: ORDERS 32 and PART 48 (of Scale()'s
+# 8,192 and 1,024), about 0.17 s a key.  At PART 48 some part meets a Q19
+# branch (its revenue is not 0; at PART 64 and 96 none does).  Q12's bank
+# (32 lanes) fits one lane chunk on the card; Q19's part hops (48 lanes)
+# and its `lt` still enter their circuits in lane chunks.  ORDERS 128 and
+# PART 192 took the whole script to 1,005-1,270 s of its 1,200 s.
+TPCH_SCALE = dict(lineitem=32768, orders=32, part=48)
 TPCH_TABLES = ["lineitem", "orders", "part"]
 TPCH_QUERIES = ("Q12", "Q19")
 MOCK_MATCH = ("mul", "rotate", "refresh", "max_depth")
@@ -1201,30 +1213,37 @@ def phase_tpch(bk) -> dict:
 # ------------------------------------------------------------------ legacy
 # The five queries whose only bodies are the hand-written `run_qN` (Q4,
 # Q5, Q8, Q14, Q17), on real ciphertexts over all eight tables.  LINEITEM
-# keeps the paper's 32,768 rows (one block); a hop costs an EQ circuit per
-# parent row, so the parents are cut.  Q17 compares 5 x quantity x count
+# fills an eighth of one block (4,096 of its 32,768 slots: every
+# ciphertext is the same size as at 32,768 rows); a hop costs an EQ
+# circuit per parent row, so the parents are cut, PART most (seven of the
+# nineteen hops are on l_partkey).  Q17 compares 5 x quantity x count
 # with the part's quantity sum mod t: when the Brand#23 / MED BOX part has
 # more than about 146 lines the difference wraps past t/2 and the answer
 # differs from the oracle's (the reference's own arithmetic), so PART
-# stays near 32,768 / 146 rows.  At this cut that part is part 205, with
-# 133 lines.
-LEGACY_SCALE = dict(lineitem=32768, orders=32, customer=48, supplier=12, part=218)
+# stays near LINEITEM / 146 rows or more.  PART 32 keeps 98-157 lines a
+# part; the planted Brand#23 / MED BOX part has 102.
+LEGACY_SCALE = dict(lineitem=4096, orders=32, customer=48, supplier=12, part=32)
 LEGACY_QUERIES = ("Q4", "Q14", "Q17", "Q5", "Q8")
-# Rows planted so that more answers are not 0: the generated tables leave
-# four of Q4's five priorities, Q8's nation_volume in both years and all
-# but one of Q5's nations at 0.  Each planted row keeps its other fields
-# (an order's lines keep their dates).
-LEGACY_Q4_ORDERS = (3, 10, 9, 15, 25, 2, 4, 20, 21, 7, 11)  # into Q4's quarter
-LEGACY_BRAZIL_SUPPLIER = 1                                   # Q8's nation_volume
-LEGACY_ASIA_PAIR = (10, 10, "INDIA")                         # Q5: customer, supplier
+# Rows planted so that more answers are not 0: the generated tables have
+# no Brand#23 / MED BOX part and no AMERICA customer with an order of 1995
+# or 1996, and leave four of Q4's five priorities and all of Q5's nations
+# at 0.  Each planted row keeps its other fields (an order's lines keep
+# their dates).
+LEGACY_Q4_ORDERS = (10, 13, 1, 8, 11, 5, 16, 17, 18, 19, 21)  # into Q4's quarter
+LEGACY_Q17_PART = 8                                            # Brand#23, MED BOX
+LEGACY_AMERICA_CUSTOMERS = (12, 40, "CANADA")                  # Q8: 1995, 1996 orders
+LEGACY_BRAZIL_SUPPLIER = 4                                     # Q8's nation_volume
+LEGACY_ASIA_PAIRS = ((13, 7, "INDIA"), (21, 11, "JAPAN"))      # Q5: customer, supplier
 
 
 def legacy_tables(scale) -> dict:
     """`tpch.generate(scale)` at LEGACY_SCALE with the rows planted: the
     orders LEGACY_Q4_ORDERS dated one a day from 1993-08-01 (Q4's
     quarter, none of them of 1994-1996, which Q5 and Q8 read; each keeps
-    its priority), supplier LEGACY_BRAZIL_SUPPLIER in BRAZIL, and the
-    customer and supplier of LEGACY_ASIA_PAIR in its nation."""
+    its priority), part LEGACY_Q17_PART of Brand#23 in a MED BOX, the
+    customers of LEGACY_AMERICA_CUSTOMERS in its nation, supplier
+    LEGACY_BRAZIL_SUPPLIER in BRAZIL, and the customer and supplier of
+    each of LEGACY_ASIA_PAIRS in its nation."""
     from repro_torch.engine import tpch
     from repro_torch.engine.schema import date_to_int
 
@@ -1233,9 +1252,14 @@ def legacy_tables(scale) -> dict:
     orders, supplier, customer = raw["orders"], raw["supplier"], raw["customer"]
     for i, key in enumerate(LEGACY_Q4_ORDERS):
         orders["o_orderdate"][key - 1] = date_to_int("1993-08-01") + i
+    raw["part"]["p_brand"][LEGACY_Q17_PART - 1] = "Brand#23"
+    raw["part"]["p_container"][LEGACY_Q17_PART - 1] = "MED BOX"
+    *custs, name = LEGACY_AMERICA_CUSTOMERS
+    for cust in custs:
+        customer["c_nationkey"][cust - 1] = nation[name]
     supplier["s_nationkey"][LEGACY_BRAZIL_SUPPLIER - 1] = nation["BRAZIL"]
-    cust, supp, name = LEGACY_ASIA_PAIR
-    customer["c_nationkey"][cust - 1] = supplier["s_nationkey"][supp - 1] = nation[name]
+    for cust, supp, name in LEGACY_ASIA_PAIRS:
+        customer["c_nationkey"][cust - 1] = supplier["s_nationkey"][supp - 1] = nation[name]
     return raw
 
 
@@ -1255,7 +1279,8 @@ def _legacy_reduced(scale, full) -> list:
     """The cuts of the legacy tables, beside Scale()'s and SF-1's rows."""
     sf1 = dict(lineitem=6_001_215, orders=1_500_000, customer=150_000, supplier=10_000,
                part=200_000, partsupp=800_000)
-    out = [f"lineitem: {scale.lineitem:,} rows, the paper's sample (SF-1: {sf1['lineitem']:,})"]
+    out = [f"lineitem: {scale.lineitem:,} rows of the paper's 32,768-row sample, in one "
+           f"block of 32,768 slots (SF-1: {sf1['lineitem']:,})"]
     out += [f"{name}: {getattr(scale, name):,} rows of Scale()'s {getattr(full, name):,} "
             f"(SF-1: {sf1[name]:,})" for name in ("orders", "customer", "supplier", "part",
                                                    "partsupp")]
@@ -1269,9 +1294,11 @@ def _legacy_reduced(scale, full) -> list:
             f"o_custkey fan-out: {scale.orders / scale.customer:.2f} orders a customer "
             f"against TPC-H's about 10",
             f"planted: orders {list(LEGACY_Q4_ORDERS)} dated 1993-08-01 on (Q4), "
-            f"supplier {LEGACY_BRAZIL_SUPPLIER} in BRAZIL (Q8), customer "
-            f"{LEGACY_ASIA_PAIR[0]} and supplier {LEGACY_ASIA_PAIR[1]} in "
-            f"{LEGACY_ASIA_PAIR[2]} (Q5)"]
+            f"part {LEGACY_Q17_PART} of Brand#23 in a MED BOX (Q17), customers "
+            f"{list(LEGACY_AMERICA_CUSTOMERS[:-1])} in {LEGACY_AMERICA_CUSTOMERS[-1]} and "
+            f"supplier {LEGACY_BRAZIL_SUPPLIER} in BRAZIL (Q8), "
+            + ", ".join(f"customer {c} and supplier {s} in {n}" for c, s, n in LEGACY_ASIA_PAIRS)
+            + " (Q5)"]
     return out
 
 
@@ -1992,13 +2019,13 @@ def _scan_kernel_times(by_shape, tabs) -> dict:
     from repro_torch.kernels.modops import ops, ref
 
     k, n = tabs.k, tabs.n
-    rng = np.random.default_rng(SEED + 2)
-    q = tabs.q.cpu().numpy()[:, None]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    q = tabs.q.to(torch.int64)[:, None]
     out = {}
     for name, per_elem in (("mul_mod", 8), ("add_mod", 3)):
         (rows, rows_b), launches = max(by_shape[name].items(), key=lambda kv: kv[0][0] * kv[1])
-        a = torch.from_numpy(rng.integers(0, q, (rows // k, k, n))).cuda()
-        b = torch.from_numpy(rng.integers(0, q, (rows_b // k, k, n))).cuda()
+        a = _draw_residues(gen, q, (rows // k, k, n))
+        b = _draw_residues(gen, q, (rows_b // k, k, n))
         kern, plain = getattr(ops, name), getattr(ref, f"{name}_ref")
         rec = _timed(name, lambda kern=kern, a=a, b=b: kern(a, b, tabs), a,
                      (2 * a.numel() + b.numel()) * E8, per_elem * a.numel(),
@@ -2024,9 +2051,9 @@ def phase_scan() -> tuple[dict, dict]:
     t0 = clock()
     consts = S.make_constants(cfg, device="cuda")
     tabs, perm = consts["tabs"], consts["perm"]
-    q = tabs.q.cpu().numpy()[:, None]
-    rng = np.random.default_rng(SEED)
-    draw = lambda *lead: torch.from_numpy(rng.integers(0, q, lead + (cfg.k, cfg.n))).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    q = tabs.q.to(torch.int64)[:, None]
+    draw = lambda *lead: _draw_residues(gen, q, lead + (cfg.k, cfg.n))
     cts_col, cts_val = draw(SCAN_BLOCKS, 2), draw(SCAN_BLOCKS, 2)
     keys = [draw(cfg.k) for _ in range(4)]
     setup_s = clock() - t0
@@ -2058,7 +2085,7 @@ def phase_scan() -> tuple[dict, dict]:
             "cut": None if spec["nblocks"] == SCAN_BLOCKS else
             f"{spec['nblocks']} -> {SCAN_BLOCKS} blocks to keep the smoke run short "
             f"(the cell's inputs are {spec['nblocks'] * 2 * 2 * cfg.k * cfg.n * E8 / 2**30:.0f} "
-            f"GiB drawn on the host); whether one card holds them was not tried",
+            f"GiB); whether one card holds them was not tried",
             "same_arithmetic_as": "scan_2m" if spec.get("ks_mode") else None,
             "eq_levels": cfg.eq_levels, "rot_steps": rot, "ks_mode": spec.get("ks_mode") or S.KS_MODE,
             "key_switches_per_block": cfg.eq_levels + 1 + rot, "chunk": chunk,
@@ -2331,10 +2358,12 @@ SCAN_KEYS = ("rlk_b", "rlk_a", "gk_b", "gk_a")
 
 
 def _mesh_scan_inputs(cfg, q) -> dict:
-    """The step's whole inputs on the host, drawn from the seed: every
-    rank and the one-device run draw the same."""
-    rng = np.random.default_rng(SEED + 4)
-    draw = lambda *lead: torch.from_numpy(rng.integers(0, q[:, None], lead + (cfg.k, cfg.n)))
+    """The step's whole inputs on the host, drawn on the card from the
+    seed (`q`: the limbs' moduli there): every rank and the one-device
+    run draw the same."""
+    gen = torch.Generator(device=q.device).manual_seed(SEED + 4)
+    q = q.to(torch.int64)[:, None]
+    draw = lambda *lead: _draw_residues(gen, q, lead + (cfg.k, cfg.n)).cpu()
     out = {"cts_col": draw(MESH_SCAN_BLOCKS, 2), "cts_val": draw(MESH_SCAN_BLOCKS, 2)}
     out.update((key, draw(cfg.k)) for key in SCAN_KEYS)
     return out
@@ -2350,7 +2379,7 @@ def _mesh_scan_expected() -> dict:
 
     cfg = CONFIG
     consts = S.make_constants(cfg, device="cuda")
-    full = {key: t.cuda() for key, t in _mesh_scan_inputs(cfg, consts["q"].cpu().numpy()).items()}
+    full = {key: t.cuda() for key, t in _mesh_scan_inputs(cfg, consts["q"]).items()}
     chunk = S.default_chunk(full["cts_col"], cfg.k)
     t0 = clock()
     out = S.query_step(full["cts_col"], full["cts_val"], *(full[k] for k in SCAN_KEYS),
@@ -2386,7 +2415,7 @@ def _mesh_scan() -> dict:
     cfg = CONFIG
     mesh = make_query_mesh(*MESH_GRID, device="cuda")
     consts = S.make_constants(cfg, device="cuda")
-    full = _mesh_scan_inputs(cfg, consts["q"].cpu().numpy())
+    full = _mesh_scan_inputs(cfg, consts["q"])
     expect = torch.load(MESH_SCAN_EXPECT).cuda()
     runs, launches, bad = {}, {}, []
     for mode in S.KS_MODES:
@@ -2533,6 +2562,16 @@ def _summed(counts) -> dict:
     return out
 
 
+def _mesh_parent_side() -> tuple[dict, dict, float]:
+    """What the parent runs while the gloo ranks run: the data-axis
+    calls on one device (`_mesh_data_axis_expected`), then the one NCCL
+    rank (its own process and group), timed."""
+    data_expect = _mesh_data_axis_expected()
+    t0 = time.perf_counter()
+    nccl = _run_ranks(1, "nccl")[0]
+    return data_expect, nccl, time.perf_counter() - t0
+
+
 def phase_mesh(expect_stats) -> tuple[dict, dict]:
     """Four ranks sharing the card over gloo on a 2 x 2 ("data", "model")
     mesh, each running Q1 on real ciphertexts held over "data" and
@@ -2541,8 +2580,8 @@ def phase_mesh(expect_stats) -> tuple[dict, dict]:
     2 x 2 context's), then a sharded BFV batch's mul, rotate, fold,
     decrypt and refresh against one device (the parent's, run beside the
     ranks), then the scan step on the mesh against one device and the
-    dry-run; then one rank under NCCL.  Returns the launch counts of the four ranks'
-    queries and of their scan steps, each summed over the ranks (the
+    dry-run; beside them, one rank under NCCL.  Returns the launch counts
+    of the four ranks' queries and of their scan steps, each summed over the ranks (the
     checks after Q1 and the one-device scan are not counted)."""
     shutil.rmtree(MESH_DIR, ignore_errors=True)
     os.makedirs(MESH_DIR)
@@ -2552,15 +2591,13 @@ def phase_mesh(expect_stats) -> tuple[dict, dict]:
         expect_s = time.perf_counter() - t0
         t0 = time.perf_counter()
         world = MESH_GRID[0] * MESH_GRID[1]
-        recs, data_expect = _run_ranks(world, "gloo", expect_stats,
-                                       meanwhile=_mesh_data_axis_expected)
+        recs, (data_expect, nccl, nccl_s) = _run_ranks(world, "gloo", expect_stats,
+                                                       meanwhile=_mesh_parent_side)
         gloo_s = time.perf_counter() - t0
         ledger = logical()
     for rec in recs:
         rec["ledger_equal_to_logical"] = (rec["ledger"]["real_mesh"]
                                           and dict(rec["ledger"], real_mesh=False) == ledger)
-    t0 = time.perf_counter()
-    nccl = _run_ranks(1, "nccl")[0]
     scans = [rec.pop("scan_step") for rec in recs]
     pred = scan_expect["dryrun"]
     beside = {mode: {"dryrun": {k: pred[mode][k] for k in (
@@ -2577,7 +2614,7 @@ def phase_mesh(expect_stats) -> tuple[dict, dict]:
                                 "one_device_chunk": scan_expect["one_device_chunk"],
                                 "one_device_and_dryrun_s": round(expect_s, 3),
                                 "by_mode": beside, "ranks": scans},
-                  "nccl_1x1": nccl, "nccl_s": round(time.perf_counter() - t0, 3),
+                  "nccl_1x1": nccl, "nccl_s": round(nccl_s, 3),
                   "kernel_launches": _summed(rec["kernel_launches"] for rec in recs),
                   "scan_kernel_launches": _summed(scan["kernel_launches"] for scan in scans)})
     if not (nccl["kswitch_gathered_equal"] and nccl["sharded_fold_equal"]):

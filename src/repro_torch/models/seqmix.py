@@ -114,7 +114,9 @@ def apply_ssm(p, x, cfg: ModelConfig, *, cache=None, **_):
         s_prev = cache["state"]                                    # (B,H,P,N)
         s_new = s_prev * a[:, 0, :, None, None] \
             + torch.einsum("bhp,bn->bhpn", xh[:, 0], B_[:, 0])
-        y = torch.einsum("bn,bhpn->bhp", C_[:, 0], s_new)[:, None]  # (B,1,H,P)
+        # s_new is float32 (a is): the reference's einsum promotes C_ to it
+        y = torch.einsum("bn,bhpn->bhp", C_[:, 0].to(s_new.dtype),
+                         s_new)[:, None]                           # (B,1,H,P)
         new_state = s_new
     else:
         pad = (-S) % cfg.ssm_chunk

@@ -584,3 +584,59 @@ def test_cuda_train_step_equals_cpu(cuda_device, arch):
         d, tiny = (got.cpu() - exp).abs().numpy(), (m.abs() < 1e-7).numpy()
         assert float(d[~tiny].max(initial=0.0)) <= 1e-4 * float(exp.abs().max())
         assert float(d[tiny].max(initial=0.0)) <= 2 * 1e-3
+
+
+MAMBA2_LAYERS, MAMBA2_PROMPT, MAMBA2_DECODE = 4, 256, 3
+BF16_SERVE_TOL = 0.04    # of the largest reference logit, as tests/test_torch_serve_bf16.py
+
+
+def _mamba2_serve(cfg, init, tokens, dev, dtype):
+    """Prefill and teacher-forced decode of `tokens` with `init` cast to
+    `dtype` on `dev`: the logits of every step (float32, on the CPU), the
+    last step's logits dtype and the caches it left."""
+    from repro_torch.models import lm
+    from repro_torch.train import steps
+
+    params = lm.tree_map(lambda t: t.to(dev, dtype) if t.is_floating_point() else t.to(dev),
+                         init)
+    tok = tokens.to(dev)
+    prefill, decode = steps.make_prefill_step(cfg), steps.make_decode_step(cfg)
+    logits, caches = prefill(params, {"tokens": tok[:, :MAMBA2_PROMPT]})
+    out = [logits.float().cpu()]
+    for i in range(MAMBA2_DECODE):
+        pos = MAMBA2_PROMPT + i
+        logits, caches = decode(params, caches, {"tokens": tok[:, pos:pos + 1]}, pos=pos)
+        out.append(logits.float().cpu())
+    return out, logits.dtype, caches
+
+
+@pytest.mark.gpu
+def test_cuda_mamba2_bf16_decode_at_full_width(cuda_device):
+    """mamba2-1.3b at full width (d_model 2048, 64 heads of 64, state 128,
+    vocab 50,280; MAMBA2_LAYERS of its 48 layers) in bfloat16 on the card:
+    a 2 x 256-token prefill and three teacher-forced decode steps, the
+    decode branch that casts the C projection to the float32 state.  The
+    logits are bfloat16 and finite, the SSM state a decode step leaves is
+    float32, and at every step the logits are within 0.04 of the largest
+    reference logit of the same bfloat16 run on the CPU and of a float32
+    run on the card from the same (bfloat16) parameters.  `pytest -s`
+    prints the gaps."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+
+    cfg = dataclasses.replace(get_config("mamba2-1.3b"), n_layers=MAMBA2_LAYERS)
+    init = lm.init_params(torch.Generator().manual_seed(0), cfg, torch.bfloat16, "cpu")
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, MAMBA2_PROMPT + MAMBA2_DECODE)))
+    got, dtype, caches = _mamba2_serve(cfg, init, tokens, cuda_device, torch.bfloat16)
+    assert dtype == torch.bfloat16
+    assert all(bool(torch.isfinite(g).all()) for g in got)
+    assert {c["state"].dtype for c in caches["units"]} == {torch.float32}
+    refs = {"cpu_bf16": _mamba2_serve(cfg, init, tokens, "cpu", torch.bfloat16)[0],
+            "cuda_f32": _mamba2_serve(cfg, init, tokens, cuda_device, torch.float32)[0]}
+    for name, ref in refs.items():
+        gaps = [float((g - r).abs().max() / r.abs().max()) for g, r in zip(got, ref)]
+        print(f"mamba2 bf16 on the card vs {name}: gaps {' '.join(f'{x:.4f}' for x in gaps)}")
+        assert max(gaps) <= BF16_SERVE_TOL, (name, gaps)
