@@ -61,7 +61,7 @@ import numpy as np
 import torch
 
 from ..core.bfv import BFVContext, Ciphertext, CiphertextBatch, Keys
-from ..runtime import faults
+from ..runtime import faults, tracing
 from ..core.encoder import BatchEncoder
 from ..core.noise import NoiseModel, NoiseProfile, paper_profile
 from ..core.params import HEParams
@@ -649,6 +649,16 @@ class BFVBackend(_BackendBase):
         self._charge_gather(a)
         mesh = self._limb_mesh()
         return self._set_d(self.ctx.swap_rows(a, self.keys.gks, mesh=mesh), self._d(a))
+
+
+# Every BFVBackend op that reaches the device is a span `bk.<op>` while a
+# query records spans (runtime/tracing.py).
+for _op in ("add", "sub", "neg", "mul", "mul_plain", "add_plain", "mul_scalar", "add_scalar",
+            "sub_from_scalar", "dot_plain", "rotate", "swap_rows", "sum_slots", "encrypt",
+            "decrypt", "refresh", "refresh_inplace", "stack_blocks", "unstack_blocks",
+            "fold_blocks"):
+    setattr(BFVBackend, _op, tracing.traced(f"bk.{_op}")(getattr(BFVBackend, _op)))
+del _op
 
 
 # ---------------------------------------------------------------------------

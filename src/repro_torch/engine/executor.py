@@ -37,10 +37,11 @@ byte-identical to the fault-free run.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
 
-from ..runtime import faults
+from ..runtime import faults, tracing
 from . import ops
 from .physical import (CmpAtom, annotate_downstream, compile_mask,
                        run_mask_node)
@@ -257,19 +258,39 @@ class Executor:
 
     # ------------------------------------------------------------ public
     def run(self, plan: QueryPlan, validate: bool = True) -> dict:
-        cq = self.compile(plan)
-        self._static_verify(cq, mirror_begin_run=True, warm=False)
-        if self.pl.optimized and self.pl.share_masks:
-            # New serve epoch: masks derived by earlier runs on this
-            # planner's cache now count as cross-query hits.
-            self.pl.mask_cache.begin_run()
-        return self._run(cq, validate, warm=False)
+        with self._query_span(plan):
+            cq = self.compile(plan)
+            self._static_verify(cq, mirror_begin_run=True, warm=False)
+            if self.pl.optimized and self.pl.share_masks:
+                # New serve epoch: masks derived by earlier runs on this
+                # planner's cache now count as cross-query hits.
+                self.pl.mask_cache.begin_run()
+            return self._run(cq, validate, warm=False)
 
     def run_compiled(self, cq: CompiledQuery, validate: bool = True) -> dict:
         """Workload path: atoms were requested and flushed batch-wide by
         `run_workload`; execute against the warm shared evaluator."""
-        self._static_verify(cq, mirror_begin_run=False, warm=True)
-        return self._run(cq, validate, warm=True)
+        with self._query_span(cq.plan):
+            self._static_verify(cq, mirror_begin_run=False, warm=True)
+            return self._run(cq, validate, warm=True)
+
+    def _query_span(self, plan: QueryPlan):
+        """The query's root span (runtime/tracing.py), counting the
+        backend's `OpStats.launches` in it."""
+        return tracing.query(plan.name, lambda: {"launches": self.bk.stats.launches})
+
+    @contextlib.contextmanager
+    def _stage(self, label: str):
+        """One stage of `_execute`: a span `label` that, when the stage
+        completes, records its `OpStats` deltas in the report and carries
+        them."""
+        stats = self.bk.stats
+        snap = stats.clone()
+        with tracing.span(label) as sp:
+            yield
+            self.report.record(label, snap, stats.clone())
+            if sp is not None:
+                sp.attrs.update(self.report.history[-1])
 
     def _static_verify(self, cq: CompiledQuery, mirror_begin_run: bool,
                        warm: bool) -> None:
@@ -541,7 +562,6 @@ class Executor:
                  ckpt: StageCheckpoint | None = None) -> dict:
         pl, bk = self.pl, self.bk
         plan, fact = cq.plan, cq.fact
-        stats = bk.stats
         group_cols, per_col_items = cq.group_cols, cq.per_col_items
         where_expr, where_node, aux_nodes = (cq.where_expr, cq.where_node,
                                              cq.aux_nodes)
@@ -558,21 +578,19 @@ class Executor:
             ev = self.ev if self.ev is not None else pl.evaluator()
             if not ckpt.has("atoms"):
                 faults.maybe_device_loss("atoms")
-                snap = stats.clone()
-                if not warm:
-                    self.request_atoms(cq, ev)
-                    ev.flush()
-                self.report.record("atoms[fused]", snap, stats.clone())
+                with self._stage("atoms[fused]"):
+                    if not warm:
+                        self.request_atoms(cq, ev)
+                        ev.flush()
                 ckpt.put("atoms", True)
 
             if ckpt.has("where"):
                 where = ckpt.get("where")
             else:
                 faults.maybe_device_loss("where")
-                snap = stats.clone()
-                where = (run_mask_node(where_node, ev, pl)
-                         if where_node is not None else None)
-                self.report.record("where", snap, stats.clone())
+                with self._stage("where"):
+                    where = (run_mask_node(where_node, ev, pl)
+                             if where_node is not None else None)
                 ckpt.put("where", where, blocks=where or ())
 
             aux = {}
@@ -582,21 +600,21 @@ class Executor:
                     aux[name] = ckpt.get(stage)
                     continue
                 faults.maybe_device_loss(stage)
-                snap = stats.clone()
-                aux[name] = self._translate_aux(a, node, ev, None)
-                self.report.record(stage, snap, stats.clone())
+                with self._stage(stage):
+                    aux[name] = self._translate_aux(a, node, ev, None)
                 ckpt.put(stage, aux[name], blocks=aux[name])
 
             if ckpt.has("gmasks"):
                 gmasks = ckpt.get("gmasks")
             elif group_cols:
                 faults.maybe_device_loss("gmasks")
-                gmasks = {
-                    col: dict(ev.eq_masks(fact, col,
-                                          [vid for _n, vid in items],
-                                          need_levels=cq.inject_layers))
-                    for col, items in zip(group_cols, per_col_items)
-                }
+                with tracing.span("gmasks"):     # no stage of the report
+                    gmasks = {
+                        col: dict(ev.eq_masks(fact, col,
+                                              [vid for _n, vid in items],
+                                              need_levels=cq.inject_layers))
+                        for col, items in zip(group_cols, per_col_items)
+                    }
                 ckpt.put("gmasks", gmasks,
                          blocks=self._gmask_blocks(gmasks))
             else:
@@ -608,10 +626,9 @@ class Executor:
                 where = ckpt.get("where")
             else:
                 faults.maybe_device_loss("where")
-                snap = stats.clone()
-                where = (pl.where_mask(fact, where_expr)
-                         if where_expr is not None else None)
-                self.report.record("where[seq]", snap, stats.clone())
+                with self._stage("where[seq]"):
+                    where = (pl.where_mask(fact, where_expr)
+                             if where_expr is not None else None)
                 ckpt.put("where", where, blocks=where or ())
             aux = {}
             for name, (a, node) in aux_nodes.items():
@@ -620,21 +637,21 @@ class Executor:
                     aux[name] = ckpt.get(stage)
                     continue
                 faults.maybe_device_loss(stage)
-                snap = stats.clone()
-                fk_ov = (ops.mask_columns(bk, fact.col(a.hop.fk).blocks, where)
-                         if where is not None else None)
-                aux[name] = self._translate_aux(a, node, None, fk_ov)
-                self.report.record(f"{stage}[pushdown]", snap, stats.clone())
+                with self._stage(f"{stage}[pushdown]"):
+                    fk_ov = (ops.mask_columns(bk, fact.col(a.hop.fk).blocks, where)
+                             if where is not None else None)
+                    aux[name] = self._translate_aux(a, node, None, fk_ov)
                 ckpt.put(stage, aux[name], blocks=aux[name])
             if ckpt.has("gmasks"):
                 gmasks = ckpt.get("gmasks")
             elif group_cols:
                 faults.maybe_device_loss("gmasks")
-                gmasks = {
-                    col: dict(ops.group_masks(bk, fact, col,
-                                              [vid for _n, vid in items]))
-                    for col, items in zip(group_cols, per_col_items)
-                }
+                with tracing.span("gmasks"):     # no stage of the report
+                    gmasks = {
+                        col: dict(ops.group_masks(bk, fact, col,
+                                                  [vid for _n, vid in items]))
+                        for col, items in zip(group_cols, per_col_items)
+                    }
                 ckpt.put("gmasks", gmasks,
                          blocks=self._gmask_blocks(gmasks))
             else:
@@ -644,10 +661,9 @@ class Executor:
         # decrypted results themselves, which must re-derive under any
         # recovery so the guards re-check them.
         faults.maybe_device_loss("aggregate")
-        snap = stats.clone()
-        out = (self._grouped(plan, fact, per_col_items, gmasks, where, aux)
-               if group_cols else self._ungrouped(plan, fact, where))
-        self.report.record("aggregate", snap, stats.clone())
+        with self._stage("aggregate"):
+            out = (self._grouped(plan, fact, per_col_items, gmasks, where, aux)
+                   if group_cols else self._ungrouped(plan, fact, where))
         return out
 
     def _translate_aux(self, a, node, ev, fk_override):

@@ -52,6 +52,7 @@ import math
 
 import numpy as np
 
+from ..runtime import tracing
 from .backend import _BackendBase
 from .storage import EncryptedColumn, EncryptedTable
 from .workload import CacheEntry, WorkloadCache
@@ -699,7 +700,17 @@ def verify_compiled(planner, cq, mirror_begin_run: bool = True,
     `mirror_begin_run` replays the serve-epoch bump `Executor.run` will
     perform right after verification; the warm workload path
     (`run_compiled`) passes False because its epoch already advanced.
-    Pure: the planner's backend, tables and cache are never touched."""
+    Pure: the planner's backend, tables and cache are never touched.
+    A span `verify` while the query records (runtime/tracing.py),
+    carrying the number of findings."""
+    with tracing.span("verify") as sp:
+        rep = _verify_compiled(planner, cq, mirror_begin_run, warm)
+        if sp is not None:
+            sp.attrs["findings"] = len(rep.findings)
+    return rep
+
+
+def _verify_compiled(planner, cq, mirror_begin_run: bool, warm: bool) -> VerifyReport:
     import dataclasses as _dc
 
     rep = VerifyReport(cq.plan.name, planner.optimized)

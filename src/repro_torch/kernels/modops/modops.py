@@ -13,7 +13,8 @@ the whole batch is never materialised at batch size.
 
 `LAUNCHES` counts kernel launches, one per call that reaches the card;
 `LAUNCHES_BY_SHAPE` counts the same launches by the row counts of their
-two operands, (rows of a, rows of b).
+two operands, (rows of a, rows of b).  While a query records spans
+(runtime/tracing.py), each launch's host time is added to it.
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ import ctypes
 
 import torch
 
+from ...runtime import tracing
 from .. import library
 from .. import on_device as _on
 
@@ -70,6 +72,7 @@ def _count(name: str, rows: int, rows_b: int) -> None:
     by_shape[rows, rows_b] = by_shape.get((rows, rows_b), 0) + 1
 
 
+@tracing.timed_issue
 def _launch(name: str, a, b, tabs):
     log_n = _check(a, b, tabs)
     out = torch.empty_like(a)

@@ -18,7 +18,9 @@ across the cluster through distributed shared memory (source note in
 csrc/ntt.cu).
 
 `LAUNCHES` counts kernel launches, one per call that reaches the card;
-`LAUNCHES_BY_ROWS` counts the same launches by their row count.
+`LAUNCHES_BY_ROWS` counts the same launches by their row count.  While a
+query records spans (runtime/tracing.py), each launch's host time is
+added to it.
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ import ctypes
 
 import torch
 
+from ...runtime import tracing
 from .. import library
 from .. import on_device as _on
 
@@ -72,6 +75,7 @@ def _raise_on(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA launch failed with error {err}")
 
 
+@tracing.timed_issue
 def ntt_fwd_cuda(a: torch.Tensor, tabs) -> torch.Tensor:
     """Forward NTT of every row of a (rows, n) int64 CUDA tensor; row r
     uses limb r % k of `tabs` (a `LimbTables`).  Output bit-reversed."""
@@ -91,6 +95,7 @@ def ntt_fwd_cuda(a: torch.Tensor, tabs) -> torch.Tensor:
     return out
 
 
+@tracing.timed_issue
 def ntt_inv_cuda(a: torch.Tensor, tabs) -> torch.Tensor:
     """Inverse NTT (consumes bit-reversed order, scales by n^-1)."""
     rows, log_n = _check_rows(a, tabs)

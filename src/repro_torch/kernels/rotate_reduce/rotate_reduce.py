@@ -18,6 +18,8 @@ the row's prefix sums in the cluster's shared memory, 4 bytes a slot: n
 up to `MAX_CHUNK_N`.  Full mode keeps no row and takes any power-of-two n.
 
 `LAUNCHES` counts kernel launches, one per call that reaches the card.
+While a query records spans (runtime/tracing.py), each launch's host
+time is added to it.
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ import functools
 
 import torch
 
+from ...runtime import tracing
 from .. import library
 from .. import on_device as _on
 
@@ -96,6 +99,7 @@ def check_args(x: torch.Tensor, t, stop_log: int) -> None:
         raise ValueError("every t in the table must be in (1, 2^31)")
 
 
+@tracing.timed_issue
 def rotate_reduce_cuda(x: torch.Tensor, t, stop_log: int, *,
                        cluster: int | None = None) -> torch.Tensor:
     """`stop_log` doubling stages of x <- (x + roll(x, -2^s)) mod t_row on

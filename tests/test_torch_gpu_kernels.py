@@ -159,6 +159,45 @@ def test_cuda_ntt_inv_limbs_cross_row_groups(paper, base, k):
     _ntt_inv_cases(ops, x.to("cuda"))
 
 
+# ------------------------------------------------------------------ tracing
+@pytest.mark.gpu
+def test_cuda_profiler_turns_recording_on_and_a_span_holds_its_kernel(cuda_device):
+    """Under a profiler tracing the device only, a query's root span
+    records, and a mul_mod launched and synchronized inside a span ran,
+    by the profiler's clock, inside that span's [start_ns, end_ns]."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.modops import modops
+    from repro_torch.kernels.tables import limb_tables
+    from repro_torch.runtime import tracing
+    tabs = limb_tables(make_params(n=4096, t=T, k=4).Q, cuda_device)
+    q = tabs.q.cpu().numpy()[:, None]
+    a = torch.from_numpy(np.random.default_rng(3).integers(0, np.tile(q, (8, 1)),
+                                                           (32, 4096))).to(cuda_device)
+    modops.mul_mod_cuda(a, a, tabs)              # built and warm
+    torch.cuda.synchronize()
+    tracing.take()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        flags = (bool(torch.autograd.profiler._is_profiler_enabled),
+                 bool(torch._C._autograd._profiler_enabled()))
+        with tracing.query("probe"):
+            on = tracing.recording()
+            with tracing.span("launch"):
+                modops.mul_mod_cuda(a, a, tabs)
+                torch.cuda.synchronize()
+    spans, dropped = tracing.take()
+    print(f"CUDA-only profiler: _is_profiler_enabled {flags[0]}, "
+          f"_profiler_enabled() {flags[1]}")
+    assert on and any(flags) and dropped == 0
+    (launch,) = [s for s in spans if s.name == "launch"]
+    (root,) = [s for s in spans if s.name == "query"]
+    assert root.attrs["wrapper_launches"] == 1 and root.attrs["issue_ns"] > 0
+    cuda = torch.autograd.DeviceType.CUDA
+    (ev,) = [e for e in prof.profiler.kineto_results.events()
+             if e.device_type() == cuda and "MulOp" in e.name()]
+    assert launch.start_ns <= ev.start_ns() <= ev.start_ns() + ev.duration_ns() <= launch.end_ns
+
+
 # ----------------------------------------------------------- rotate_reduce
 @pytest.mark.gpu
 @pytest.mark.parametrize("n", [256, 16384])
