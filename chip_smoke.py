@@ -142,8 +142,9 @@ SPIN_CYCLES_PER_S = 2e9
 
 LANES = 5            # Q6's five `lt` atoms run as one stacked batch
 SEED = 0
-# the kernels under every BFV ciphertext operation (core/limbops.py)
-BFV_KERNELS = ("ntt_fwd", "ntt_inv", "mul_mod", "add_mod", "sub_mod")
+# the kernels under every BFV ciphertext operation (core/limbops.py) and
+# every ciphertext multiply's base conversions (core/bfv.py `_fbc`)
+BFV_KERNELS = ("ntt_fwd", "ntt_inv", "mul_mod", "add_mod", "sub_mod", "base_conv")
 # the kernels each driven path must launch
 PATH_KERNELS = {"main": BFV_KERNELS, "workload_q1_bfv": BFV_KERNELS, "tpch": BFV_KERNELS,
                 "legacy": BFV_KERNELS, "workload_mock": ("rotate_reduce",),
@@ -441,11 +442,34 @@ def phase_kernels(paper) -> dict:
             out[name]["at_shapes"][f"{rows}/{rows_b}"] = _timed(
                 name, lambda op=op, a=a, b=b: op(a, b), a,
                 (2 * a.numel() + b.numel()) * E8, per_elem * a.numel())
+    out["base_conv"] = _base_conv_kernel(paper, rng, dev)
     rr_checks, out["rotate_reduce"] = _rotate_reduce_kernel(paper, dev)
     fa_checks, out["flash_attn"] = _flash_attn_kernel(rng, dev)
     emit("kernel_checks", {"equal_to_plain_version": checks + rr_checks,
                            "tolerance": "exact (torch.equal)",
                            "flash_attn": fa_checks})
+    return out
+
+
+def _base_conv_kernel(paper, rng, dev) -> dict:
+    """The fast base conversion (kernels/baseconv) at the shapes a
+    multiply gives it, 1 or 5 lanes of Q -> P (30 -> 31 limbs) and P -> Q,
+    against its plain version on the card and timed: ka products of about
+    six integer operations per output residue (csrc/baseconv.cu)."""
+    from repro_torch.kernels.baseconv import ops as conv_ops
+    from repro_torch.kernels.baseconv.ref import base_conv_ref
+    from repro_torch.kernels.tables import conv_tables, limb_tables
+    tq, tp = limb_tables(paper.Q, dev), limb_tables(paper.P, dev)
+    out = {}
+    for tabs, primes in ((conv_tables(paper.conv_q_to_p, tq, tp), paper.Q.primes),
+                         (conv_tables(paper.conv_p_to_q, tp, tq), paper.P.primes)):
+        for lanes in (1, LANES):
+            x = _rand_limbs(rng, primes, (lanes,), paper.n, dev)
+            rows = lanes * paper.n
+            out[f"{tabs.ka}->{tabs.kb}/{lanes}"] = _timed(
+                "base_conv", lambda x=x, t=tabs: conv_ops.base_conv(x, t), x,
+                rows * (tabs.ka + tabs.kb) * E8, 6 * rows * tabs.ka * tabs.kb,
+                plain=lambda x=x, t=tabs: base_conv_ref(x, t))
     return out
 
 
@@ -2957,6 +2981,8 @@ KERNEL_META = {
     "mul_mod": ("src/repro_torch/kernels/csrc/modops.cu", "src/repro/kernels/modops/modops.py:44"),
     "add_mod": ("src/repro_torch/kernels/csrc/modops.cu", "src/repro/kernels/modops/modops.py:59"),
     "sub_mod": ("src/repro_torch/kernels/csrc/modops.cu", "src/repro/kernels/modops/modops.py:69"),
+    "base_conv": ("src/repro_torch/kernels/csrc/baseconv.cu",
+                  "none: src/repro/core/bfv.py:389 BFVContext._fbc is plain array code"),
     "rotate_reduce": ("src/repro_torch/kernels/csrc/rotate_reduce.cu",
                       "src/repro/kernels/rotate_reduce/rotate_reduce.py:29"),
     "flash_attn": ("src/repro_torch/kernels/csrc/flash_attn.cu",

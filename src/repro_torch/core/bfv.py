@@ -21,9 +21,10 @@ through `core/limbops.LimbOps`: hand-written CUDA kernels when the
 context lives on the card, the plain int64 versions when it was built
 with `device="cpu"`.  Both produce bit-identical residues, so decryption
 results do not depend on the device.  Ciphertext add and sub are the
-same pointwise kernels over the (2, k, n) payload.  Everything else
-(base conversion, digit decomposition, the Galois gather, scalar ops) is
-plain tensor code on the context's device.
+same pointwise kernels over the (2, k, n) payload.  The HPS fast base
+conversion (`_fbc`) is one kernel launch on the card
+(`kernels/baseconv`).  Everything else (digit decomposition, the Galois
+gather, scalar ops) is plain tensor code on the context's device.
 
 On a ("data", "model") device mesh (launch/mesh.py) every rank runs the
 same program.  A stacked batch the query engine places on the mesh is
@@ -61,8 +62,11 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..kernels.baseconv import ops as conv_ops
+from ..kernels.baseconv import ref as conv_ref
+from ..kernels.tables import conv_tables
 from .collectives import axis_index, gather_axis, mesh_axes
-from .limbops import LimbLocalOps, LimbOps
+from .limbops import LimbLocalOps, LimbOps, ref_forced
 from .mathutil import centered, crt_reconstruct
 from .noise import NoiseModel
 from .params import HEParams
@@ -276,21 +280,14 @@ class BFVContext:
         self.qP = self.limb_p.q
         self.delta = _i64(p.delta_mod_q, dev)            # (k,)
         self.qinv_p = _i64(p.q_inv_mod_p, dev)           # (kp,)
-        cqp, cpq = p.conv_q_to_p, p.conv_p_to_q
-        self.c_qp = self._conv(cqp)
-        self.c_pq = self._conv(cpq)
+        self.c_qp = conv_tables(p.conv_q_to_p, self.limb_q.tabs, self.limb_p.tabs)
+        self.c_pq = conv_tables(p.conv_p_to_q, self.limb_p.tabs, self.limb_q.tabs)
         self._local_ops: dict[tuple[int, int], LimbLocalOps] = {}
         self._galois_tabs = {
             g: (torch.from_numpy(tab.src.astype(np.int64)).to(dev),
                 _i64(tab.sign, dev))
             for g, tab in p.galois.items()
         }
-
-    def _conv(self, c):
-        dev = self.device
-        return (_i64(c.a_hat_inv_mod_a, dev), _i64(c.a_hat_mod_b, dev),
-                _i64(c.a_mod_b, dev),
-                torch.from_numpy(np.asarray(c.a_inv, dtype=np.float64)).to(dev))
 
     def _dev(self, x) -> torch.Tensor:
         """A numpy array or tensor as an int64 tensor on this device."""
@@ -484,26 +481,16 @@ class BFVContext:
         _all_limbs(ct, "decrypt")
         return self._decrypt_impl(ct.data, sk.s_ntt)
 
-    @staticmethod
-    def _limb_dot_f64(y, w):
-        """sum_i y[..., i, :] * w[i] in float64, accumulated limb by limb
-        in index order (a fixed order keeps the rounding reproducible)."""
-        acc = y[..., 0, :].to(torch.float64) * w[0]
-        for i in range(1, y.shape[-2]):
-            acc = acc + y[..., i, :].to(torch.float64) * w[i]
-        return acc
-
     def _decrypt_impl(self, data, s_ntt):
         p = self.params
         q = self.qQ[:, None]
         lq = self.limb_q
         c0, c1 = data[..., 0, :, :], data[..., 1, :, :]
         x = (c0 + lq.intt(lq.mul(lq.ntt(c1), s_ntt))) % q
-        hat_inv, _, _, q_inv_f = self.c_qp
-        y = x * hat_inv[:, None] % q
+        y = x * self.c_qp.hat_inv[:, None] % q
         yt = y * p.t
         int_part = torch.sum(yt // q, dim=-2)
-        frac = self._limb_dot_f64(yt % q, q_inv_f)
+        frac = conv_ref.limb_dot_f64(yt % q, self.c_qp.a_inv)
         return (int_part + torch.round(frac).to(torch.int64)) % p.t
 
     # ------------------------------------------------------- add/sub/neg
@@ -570,24 +557,15 @@ class BFVContext:
         return torch.stack([out0, out1], dim=-3)
 
     # ------------------------------------------------- HPS base conversion
-    @classmethod
-    def _fbc(cls, x, conv, in_mod, out_mod):
-        """Exact fast base conversion of the centered value of x.
-
-        x: (..., ka, n) residues mod in_mod; conv: BaseConv tensors;
-        out_mod: (kb,). Products stay < 2^62, exact in int64.  The sum
-        over input limbs runs one limb at a time, so the (ka, kb, n)
-        term tensor is never held whole.
-        """
-        hat_inv, hat_mod_b, a_mod_b, a_inv = conv
-        y = (x * hat_inv[:, None]) % in_mod[:, None]
-        v = torch.round(cls._limb_dot_f64(y, a_inv)).to(torch.int64)
-        ob = out_mod[:, None]
-        acc = None                                        # (..., kb, n) < ka * b_j
-        for i in range(y.shape[-2]):
-            term = (y[..., i, None, :] * hat_mod_b[i][:, None]) % ob
-            acc = term if acc is None else acc + term
-        return (acc - v[..., None, :] * a_mod_b[:, None]) % ob
+    @staticmethod
+    def _fbc(x, conv):
+        """Exact fast base conversion of the centered value of x: (..., ka,
+        n) residues in [0, a_i) of conv's input base (`c_qp` or `c_pq`) ->
+        (..., kb, n) of its output base.  One kernel launch for a CUDA
+        tensor, the plain version for a CPU one or under `force_ref()`."""
+        if ref_forced():
+            return conv_ref.base_conv_ref(x, conv)
+        return conv_ops.base_conv(x, conv)
 
     # ------------------------------------------------------- ct-ct multiply
     def mul(self, a, b, rlk: KSwitchKey, mesh=None):
@@ -630,8 +608,8 @@ class BFVContext:
         a0, a1 = da[..., 0, :, :], da[..., 1, :, :]
         b0, b1 = db[..., 0, :, :], db[..., 1, :, :]
         # 1. lift to Q ∪ P
-        aP = (self._fbc(a0, self.c_qp, qQ, qP), self._fbc(a1, self.c_qp, qQ, qP))
-        bP = (self._fbc(b0, self.c_qp, qQ, qP), self._fbc(b1, self.c_qp, qQ, qP))
+        aP = (self._fbc(a0, self.c_qp), self._fbc(a1, self.c_qp))
+        bP = (self._fbc(b0, self.c_qp), self._fbc(b1, self.c_qp))
         # 2. NTT + tensor in both bases
         fa = [lq.ntt(a0), lq.ntt(a1)]
         fb = [lq.ntt(b0), lq.ntt(b1)]
@@ -651,9 +629,9 @@ class BFVContext:
         rs = []
         for eq, ep in zip(tq, tp):
             rem_q = (eq * p.t) % qQ[:, None]
-            rem_p = self._fbc(rem_q, self.c_qp, qQ, qP)
+            rem_p = self._fbc(rem_q, self.c_qp)
             r_p = ((ep * p.t - rem_p) % qP[:, None]) * self.qinv_p[:, None] % qP[:, None]
-            rs.append(self._fbc(r_p, self.c_pq, qP, qQ))       # 4. back to base Q
+            rs.append(self._fbc(r_p, self.c_pq))               # 4. back to base Q
         return rs[0], rs[1], rs[2]
 
     def _mul_impl(self, da, db, rlk_b, rlk_a):

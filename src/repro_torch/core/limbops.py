@@ -57,6 +57,12 @@ def force_ref():
         _FORCE_REF -= 1
 
 
+def ref_forced() -> bool:
+    """Whether a `force_ref()` context is open (BFVContext's base
+    conversion reads it too)."""
+    return _FORCE_REF > 0
+
+
 class LimbOps:
     """Pointwise + NTT primitives for one RNS base on one device."""
 

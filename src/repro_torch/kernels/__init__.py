@@ -2,7 +2,8 @@
 
 The directory contract
 ----------------------
-Each kernel family `<name>` (ntt, modops, rotate_reduce, flash_attn) ships
+Each kernel family `<name>` (ntt, modops, baseconv, rotate_reduce,
+flash_attn) ships
 
   csrc/<name>.cu      the CUDA C++ source, plain C entry points
                       (`<fn>_launch`) that take raw device pointers and
@@ -41,7 +42,7 @@ import subprocess
 
 import torch
 
-SOURCES = ("ntt", "modops", "rotate_reduce", "flash_attn")
+SOURCES = ("ntt", "modops", "baseconv", "rotate_reduce", "flash_attn")
 
 _CSRC = os.path.join(os.path.dirname(__file__), "csrc")
 _BUILD = os.path.join(os.path.dirname(__file__), "_build")
@@ -134,11 +135,13 @@ def on_device(device):
 
 def _tables() -> tuple[dict[str, int], ...]:
     """Every kernel wrapper's `LAUNCHES` table."""
+    from .baseconv import baseconv
     from .flash_attn import flash_attn
     from .modops import modops
     from .ntt import ntt
     from .rotate_reduce import rotate_reduce
-    return (ntt.LAUNCHES, modops.LAUNCHES, rotate_reduce.LAUNCHES, flash_attn.LAUNCHES)
+    return (ntt.LAUNCHES, modops.LAUNCHES, baseconv.LAUNCHES, rotate_reduce.LAUNCHES,
+            flash_attn.LAUNCHES)
 
 
 def launch_counts() -> dict[str, int]:
@@ -147,10 +150,12 @@ def launch_counts() -> dict[str, int]:
 
 
 def reset_launch_counts() -> None:
+    from .baseconv import baseconv
     from .modops import modops
     from .ntt import ntt
     for table in _tables():
         for key in table:
             table[key] = 0
-    for by_shape in (*ntt.LAUNCHES_BY_ROWS.values(), *modops.LAUNCHES_BY_SHAPE.values()):
+    for by_shape in (*ntt.LAUNCHES_BY_ROWS.values(), *modops.LAUNCHES_BY_SHAPE.values(),
+                     *baseconv.LAUNCHES_BY_SHAPE.values()):
         by_shape.clear()

@@ -2,10 +2,11 @@
 
 One `LimbTables` holds, on one device, everything the limb-level
 primitives of an RNS base read: the int64 tables of the plain versions
-and the 32-bit words the CUDA kernels read.  32-bit values up to 2^32-1
-(the Shoup companions) are stored as raw bit patterns in `torch.int32`
-tensors and the 64-bit Barrett constants likewise in `torch.int64`; the
-kernels reinterpret them as unsigned.  Tables are per limb, (k, n) or
+and the 32-bit words the CUDA kernels read; one `BaseConvTables` does the
+same for the fast base conversion from one base to another.  32-bit
+values up to 2^32-1 (the Shoup companions) are stored as raw bit
+patterns in `torch.int32` tensors and the 64-bit Barrett constants
+likewise in `torch.int64`; the kernels reinterpret them as unsigned.  Tables are per limb, (k, n) or
 (k,): a batch of any size indexes them by row % k.
 """
 from __future__ import annotations
@@ -15,7 +16,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..core.params import NttTables
+from ..core.params import BaseConv, NttTables
 from .u32 import barrett_precompute, check_modulus
 
 
@@ -84,3 +85,54 @@ def slice_limbs(tabs: LimbTables, lo: int, hi: int) -> LimbTables:
     return dataclasses.replace(tabs, k=hi - lo, **{
         f.name: getattr(tabs, f.name)[lo:hi] for f in dataclasses.fields(tabs)
         if isinstance(getattr(tabs, f.name), torch.Tensor)})
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class BaseConvTables:
+    """The constants of the HPS fast base conversion from base A (`ka`
+    limbs) to base B (`kb` limbs) on one device (core/params.BaseConv)."""
+    ka: int
+    kb: int
+    device: torch.device
+    # plain version (int64, float64)
+    in_q: torch.Tensor         # (ka,)     the primes a_i
+    out_q: torch.Tensor        # (kb,)     the primes b_j
+    hat_inv: torch.Tensor      # (ka,)     (A / a_i)^-1 mod a_i
+    hat_mod_b: torch.Tensor    # (ka, kb)  (A / a_i) mod b_j
+    a_mod_b: torch.Tensor      # (kb,)     A mod b_j
+    a_inv: torch.Tensor        # (ka,)     float64 1 / a_i, also read by the kernel
+    # kernel (bit patterns)
+    in_q32: torch.Tensor       # (ka,)        int32
+    hat_inv32: torch.Tensor    # (ka, 2)      int32: hat_inv, its Shoup companion
+    out_q32: torch.Tensor      # (kb,)        int32
+    out_mu64: torch.Tensor     # (kb,)        int64, floor(2^64 / b_j)
+    a_mod_b32: torch.Tensor    # (kb,)        int32
+    hat_mod_b32: torch.Tensor  # (ka, kb, 2)  int32: hat_mod_b, its Shoup companions
+
+
+def conv_tables(conv: BaseConv, src: LimbTables, dst: LimbTables) -> BaseConvTables:
+    """The device tables of the conversion `conv` from the base of `src`
+    to the base of `dst`, on their device."""
+    device = src.device
+
+    def i64(x):
+        return torch.from_numpy(np.ascontiguousarray(x, dtype=np.int64)).to(device)
+
+    aq = src.q.cpu().numpy().astype(np.uint64)
+    bq = dst.q.cpu().numpy().astype(np.uint64)
+    hat_inv = np.asarray(conv.a_hat_inv_mod_a, dtype=np.uint64)
+    hat_mod_b = np.asarray(conv.a_hat_mod_b, dtype=np.uint64)
+    sh = np.uint64(32)
+    return BaseConvTables(
+        ka=src.k, kb=dst.k, device=device,
+        in_q=src.q, out_q=dst.q,
+        hat_inv=i64(conv.a_hat_inv_mod_a), hat_mod_b=i64(conv.a_hat_mod_b),
+        a_mod_b=i64(conv.a_mod_b),
+        a_inv=torch.from_numpy(np.asarray(conv.a_inv, dtype=np.float64)).to(device),
+        in_q32=src.q32,
+        hat_inv32=_bits32(np.stack([hat_inv, (hat_inv << sh) // aq], axis=-1), device),
+        out_q32=dst.q32, out_mu64=dst.mu64,
+        a_mod_b32=_bits32(np.asarray(conv.a_mod_b, dtype=np.uint64), device),
+        hat_mod_b32=_bits32(np.stack([hat_mod_b, (hat_mod_b << sh) // bq[None, :]], axis=-1),
+                            device),
+    )

@@ -8,10 +8,12 @@ property tests can hold each one against Python big-int arithmetic:
   mulhi_u32      high 32 bits of a 32x32 product
   mullo_u32      low 32 bits of a 32x32 product
   shoup_mulmod   a * w mod q with w' = floor(w * 2^32 / q) precomputed —
-                 one mulhi + one wrapping mul-sub (twiddles)
+                 one mulhi + one wrapping mul-sub (twiddles);
+                 shoup_mulmod_lazy leaves it in [0, 2q)
   barrett_mulmod general a * b mod q with mu = floor(2^64 / q): quotient
                  estimate from the high half of a 64x64 product, one
-                 conditional subtraction
+                 conditional subtraction; barrett_reduce the same for
+                 any x < 2^62
   add_mod / sub_mod
 
 Moduli are odd with 2^28 < q < 2^31 (`check_modulus`): the 30-bit
@@ -57,10 +59,15 @@ def shoup_precompute(w: int, q: int) -> int:
     return (int(w) << 32) // int(q)
 
 
+def shoup_mulmod_lazy(a, w, w_shoup, q):
+    """A value congruent to a * w mod q in [0, 2q), with precomputed w'."""
+    hi = mulhi_u32(a, w_shoup)
+    return (mullo_u32(a, w) - mullo_u32(hi, q)) & _M32
+
+
 def shoup_mulmod(a, w, w_shoup, q):
     """a * w mod q with precomputed w' (Longa-Naehrig).  Result < q."""
-    hi = mulhi_u32(a, w_shoup)
-    r = (mullo_u32(a, w) - mullo_u32(hi, q)) & _M32   # true value in [0, 2q)
+    r = shoup_mulmod_lazy(a, w, w_shoup, q)
     return torch.where(r >= q, r - q, r)
 
 
@@ -77,15 +84,19 @@ def _umul64hi(p, mu):
     return p1 * m1 + (mid >> 32)
 
 
-def barrett_mulmod(a, b, q, mu):
-    """General a*b mod q (a, b < q < 2^31).
+def barrett_reduce(x, q, mu):
+    """x mod q for 0 <= x < 2^62 (the device version takes any x < 2^64).
 
-    P = a*b < 2^62; qhat = floor(P * mu / 2^64) is floor(P/q) or one
-    less, so r = P - qhat*q lies in [0, 2q): one conditional subtraction.
+    qhat = floor(x * mu / 2^64) is floor(x/q) or one less, so
+    r = x - qhat*q lies in [0, 2q): one conditional subtraction.
     """
-    p = a * b
-    r = p - _umul64hi(p, mu) * q
+    r = x - _umul64hi(x, mu) * q
     return torch.where(r >= q, r - q, r)
+
+
+def barrett_mulmod(a, b, q, mu):
+    """General a*b mod q (a, b < q < 2^31): P = a*b < 2^62."""
+    return barrett_reduce(a * b, q, mu)
 
 
 def add_mod(a, b, q):

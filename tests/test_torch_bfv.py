@@ -150,10 +150,10 @@ def test_mul_tensor_and_base_conversion(pair):
     jr = pair.jc._mul_tensor_impl(pair.j1.data, pair.j2.data)
     for a, b in zip(tr, jr):
         assert _eq(a, b)
-    tl = pair.tc._fbc(pair.t1.data[0], pair.tc.c_qp, pair.tc.qQ, pair.tc.qP)
+    tl = pair.tc._fbc(pair.t1.data[0], pair.tc.c_qp)
     jl = pair.jc._fbc(pair.j1.data[0], pair.jc.c_qp, pair.jc.qQ, pair.jc.qP)
     assert _eq(tl, jl)
-    assert _eq(pair.tc._fbc(tl, pair.tc.c_pq, pair.tc.qP, pair.tc.qQ),
+    assert _eq(pair.tc._fbc(tl, pair.tc.c_pq),
                pair.jc._fbc(jl, pair.jc.c_pq, pair.jc.qP, pair.jc.qQ))
 
 

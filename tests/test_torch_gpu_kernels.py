@@ -8,8 +8,9 @@ machine with a GPU and no JAX:
 
 (it puts this checkout's `src/` on the path itself).
 
-The limb kernels, both NTTs and rotate_reduce are held exactly
-(tolerance 0: integer arithmetic); flash_attn within 1e-4 in float32
+The limb kernels, both NTTs, the fast base conversion and rotate_reduce
+are held exactly (tolerance 0: integer arithmetic), and one BFV multiply
+on the card equals its CPU run; flash_attn within 1e-4 in float32
 (the kernel and the dense version sum in different orders) and 2e-2 in
 bfloat16 (outputs round at 2^-8 relative).  Sharded BFV queries on the
 card equal the unsharded run on the card, and checkpoints of CUDA
@@ -157,6 +158,74 @@ def test_cuda_ntt_inv_limbs_cross_row_groups(paper, base, k):
     rng = np.random.default_rng(k)
     x = torch.from_numpy(rng.integers(0, np.array(primes)[:, None], (3, k, paper.n)))
     _ntt_inv_cases(ops, x.to("cuda"))
+
+
+# ------------------------------------------------------- fast base conversion
+@pytest.fixture(scope="module")
+def paper_convs(paper):
+    """{"qp": Q -> P tables, "pq": P -> Q tables} at paper_params() on the card."""
+    from repro_torch.kernels.tables import conv_tables, limb_tables
+    tq, tp = limb_tables(paper.Q, "cuda"), limb_tables(paper.P, "cuda")
+    return {"qp": conv_tables(paper.conv_q_to_p, tq, tp),
+            "pq": conv_tables(paper.conv_p_to_q, tp, tq)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("way", ["qp", "pq"])
+@pytest.mark.parametrize("lead", [(), (1,), (5,), (2, 5)], ids=str)
+def test_cuda_base_conv_equals_plain_version(paper, paper_convs, way, lead):
+    """The fast base conversion kernel at paper_params() (n = 32768), Q ->
+    P (30 -> 31 limbs) and P -> Q, bit for bit with its plain version on
+    the same CUDA tensor: random residues with limb rows of 0 and of
+    q_i - 1 in the first lane, one launch a call; then one component of
+    a stacked (*lead, 2, k, n) batch, whose rows lie at a stride."""
+    from repro_torch.kernels.baseconv import ops as conv_ops
+    from repro_torch.kernels.baseconv.ref import base_conv_ref
+    tabs = paper_convs[way]
+    primes = (paper.Q if way == "qp" else paper.P).primes
+    q = np.array(primes, dtype=np.int64)[:, None]
+    rng = np.random.default_rng(len(lead) * 2 + (way == "pq"))
+    x = rng.integers(0, q, (*lead, len(primes), paper.n))
+    first = x.reshape(-1, len(primes), paper.n)[0]
+    first[::2] = 0
+    first[1::2] = np.broadcast_to(q - 1, first.shape)[1::2]
+    x = torch.from_numpy(x).to("cuda")
+    before = kernels.launch_counts()["base_conv"]
+    got = conv_ops.base_conv(x, tabs)
+    assert kernels.launch_counts()["base_conv"] == before + 1
+    assert got.shape == (*lead, tabs.kb, paper.n)
+    assert torch.equal(got, base_conv_ref(x, tabs))
+    stacked = torch.stack([x, x.flip(-1)], dim=-3)
+    comp = stacked[..., 1, :, :]
+    assert torch.equal(conv_ops.base_conv(comp, tabs), base_conv_ref(comp, tabs))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lanes", [None, 5], ids=["ciphertext", "5lanes"])
+def test_cuda_bfv_mul_equals_its_cpu_run(cuda_device, lanes):
+    """One BFVContext.mul (ten base conversions, each one kernel launch)
+    on the card equals the same multiply of the same ciphertexts and key
+    on the CPU, residue for residue, at k = 30 (the paper's base shapes)
+    and n = 256."""
+    import dataclasses
+    from repro_torch.core import bfv
+    p = make_params(n=256, t=T, k=30)
+    gpu = bfv.BFVContext(p, seed=3, device=cuda_device)
+    keys = gpu.keygen(galois_steps=())
+    rng = np.random.default_rng(3)
+    cts = [[gpu.encrypt(rng.integers(0, T, p.n), keys.pk) for _ in range(lanes or 1)]
+           for _ in range(2)]
+    a, b = ((c[0] if lanes is None else gpu.stack_cts(c)) for c in cts)
+    before = kernels.launch_counts()["base_conv"]
+    got = gpu.mul(a, b, keys.rlk)
+    assert kernels.launch_counts()["base_conv"] == before + 10
+    cpu = bfv.BFVContext(p, seed=3, device="cpu")
+    rlk = dataclasses.replace(keys.rlk, b=keys.rlk.b.cpu(), a=keys.rlk.a.cpu())
+    exp = cpu.mul(dataclasses.replace(a, data=a.data.cpu()),
+                  dataclasses.replace(b, data=b.data.cpu()), rlk)
+    assert torch.equal(got.data.cpu(), exp.data)
+    sk = dataclasses.replace(keys.sk, s_ntt=keys.sk.s_ntt.cpu())
+    assert torch.equal(gpu.decrypt(got, keys.sk).cpu(), cpu.decrypt(exp, sk))
 
 
 # ------------------------------------------------------------------ tracing

@@ -265,7 +265,8 @@ def test_launch_counters_start_at_zero_and_reset():
     from repro_torch import kernels
     from repro_torch.kernels.ntt import ntt as ntt_launch
     assert set(kernels.launch_counts()) == {"ntt_fwd", "ntt_inv", "mul_mod", "add_mod",
-                                            "sub_mod", "rotate_reduce", "flash_attn"}
+                                            "sub_mod", "base_conv", "rotate_reduce",
+                                            "flash_attn"}
     p = make_params(n=64, t=257, k=1)
     tabs = limb_tables(p.Q, "cpu")
     before = kernels.launch_counts()
