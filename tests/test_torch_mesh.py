@@ -366,7 +366,7 @@ def test_dryrun_record_scan_2m(tmp_path):
     model ranks.  Bytes held from shapes; the step run on meta tensors
     for flops, bytes moved, temporaries and the collectives: 32 key
     switches a block, each all-gathering the 4 blocks' digits (4 x 32 x
-    32768 int64), and one all-reduce of the (2, 2, 32768) aggregate a
+    32768 int32), and one all-reduce of the (2, 2, 32768) aggregate a
     block axis (two on the multi-pod mesh: "pod", then "data")."""
     import json
     import torch.distributed as dist
@@ -384,8 +384,8 @@ def test_dryrun_record_scan_2m(tmp_path):
     assert ref_fields <= set(rec)
     assert {f for f in ref_fields if rec[f] is None} == set(rec["null_reasons"]) == {
         "lower_s", "compile_s"}
-    gather = 32 * 4 * k * n * 8
-    assert gather == 1_073_741_824
+    gather = 32 * 4 * k * n * 4
+    assert gather == 536_870_912
     assert rec["collective_bytes"] == {"all-gather": gather, "all-reduce": 1_048_576,
                                        "reduce-scatter": 0, "all-to-all": 0,
                                        "collective-permute": 0}

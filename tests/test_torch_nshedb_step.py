@@ -138,6 +138,28 @@ def test_query_step(consts, inputs, jax_query, mode, chunk):
     assert np.array_equal(jax_query["all_gather"], jax_query["reduce_scatter"])
 
 
+def test_lanes_take_turns_and_give_the_same_aggregate(consts, inputs, jax_query):
+    """Step generators run in turns, one step each (`_interleave`: the
+    order every rank issues its lanes' exchanges in), or through
+    (`_run`); two lanes of 2 blocks give the JAX package's aggregate."""
+    log = []
+
+    def lane(name, steps):
+        for i in range(steps):
+            log.append((name, i))
+            yield
+        return name
+
+    assert T._interleave([lane("a", 3), lane("b", 2)]) == ["a", "b"]
+    assert log == [("a", 0), ("b", 0), ("a", 1), ("b", 1), ("a", 2)]
+    assert T._run(lane("c", 2)) == "c"
+    tc = consts[1]
+    keys = T.tile_keys(list(map(torch.from_numpy, inputs["keys"])), 2)
+    got = T._scan_chunks(torch.from_numpy(inputs["col"]), torch.from_numpy(inputs["val"]), keys,
+                         tc["tabs"], tc["perm"], CFG.eq_levels, CFG.rot_steps, 2, lanes=2)
+    assert np.array_equal(got.numpy(), jax_query["all_gather"])
+
+
 def test_tree_fold(consts):
     jc, tc = consts
     q = jc["q"].astype(np.int64)[:, None]

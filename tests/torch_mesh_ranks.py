@@ -422,6 +422,32 @@ def scan_inputs(q, k: int, n: int, nblocks: int = SCAN_BLOCKS, seed: int = SCAN_
     return out
 
 
+def scan_shard(scan, nblocks: int, seed: int) -> dict:
+    """A `MeshScan` rank's shard of `scan_inputs` (the `shard` of
+    `nshedb_step.serve_mesh_scan` in tests/test_torch_mesh_scan_loop.py)."""
+    from repro_torch.launch import nshedb_step as S
+    full = scan_inputs(scan.tabs.q.cpu().numpy(), scan.cfg.k, scan.cfg.n, nblocks, seed)
+    return S.shard_inputs({key: torch.from_numpy(a).to(scan.device) for key, a in full.items()},
+                          scan.mesh, scan.mode)
+
+
+def shares_card(scan, cards):
+    """`nshedb_step._shares` on every rank of the group at once, each
+    rank naming card `cards[rank]`."""
+    from repro_torch.launch import nshedb_step as S
+    return S._shares(cards[scan.rank])
+
+
+def scan_fault(scan, rank: int, kind: str, v: int):
+    """A query in which rank `rank` raises (kind "raises") or dies
+    ("dies") before its first collective while the others run it."""
+    if scan.rank == rank:
+        if kind == "dies":
+            os._exit(3)
+        raise ValueError(f"rank {rank} refuses the query")
+    return scan.query(v)
+
+
 def scan_meshes(world: int, device):
     """{name: mesh} the scan-step cases run on: ("data",) and (1, 2)
     ("data", "model") on 2 ranks; (2, 2) and a (2, 1, 2) ("pod", "data",

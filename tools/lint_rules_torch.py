@@ -48,7 +48,7 @@ R001_ALLOWED = (
      "the reference's own line (src/repro/engine/backend.py fold_blocks): "
      "the sum of the ranks' partial folds after sharded_fold's all-reduce "
      "over \"data\", brought below q_j once"),
-    ("launch/nshedb_step.py", "keyswitch_sharded",
+    ("launch/nshedb_step.py", "_keyswitch_sharded.steps",
      "after reduce_scatter_axis over \"model\": M partial folds, their sum "
      "below M * 2^31, exact in int64, brought below q_j once"),
     ("launch/nshedb_step.py", "query_step_sharded",
