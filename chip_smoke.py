@@ -150,8 +150,8 @@ PATH_KERNELS = {"main": BFV_KERNELS, "workload_q1_bfv": BFV_KERNELS, "tpch": BFV
                 "legacy": BFV_KERNELS, "workload_mock": ("rotate_reduce",),
                 "shard_q1_bfv": BFV_KERNELS,
                 "shard_chaos_mock": ("rotate_reduce",), "serve": ("flash_attn",),
-                "scan": ("mul_mod", "add_mod"), "mesh": BFV_KERNELS,
-                "mesh_scan": ("mul_mod", "add_mod"), "train": ("flash_attn",)}
+                "scan": ("mul_mod", "add_mod", "keyswitch"), "mesh": BFV_KERNELS,
+                "mesh_scan": ("mul_mod", "add_mod", "keyswitch"), "train": ("flash_attn",)}
 # flash_attn against its plain version: the kernel and the dense version
 # sum in different orders (float32), and bfloat16 outputs round at 2^-8
 FLASH_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
@@ -832,9 +832,11 @@ def ntt_launches_by_rows() -> dict:
 def modops_launches_by_shape() -> dict:
     """mul_mod, add_mod and sub_mod launches since the last reset, by the
     row counts of their operands as "rows_a/rows_b" (n = 32768 on the
-    paths), most launched first."""
+    paths), and keyswitch launches as "blocks/kd/kj", most launched
+    first."""
     from repro_torch.kernels.modops import modops
-    return {fn: {f"{a}/{b}": n for (a, b), n in sorted(by_shape.items(), key=lambda kv: -kv[1])}
+    return {fn: {"/".join(map(str, shape)): n
+                 for shape, n in sorted(by_shape.items(), key=lambda kv: -kv[1])}
             for fn, by_shape in modops.LAUNCHES_BY_SHAPE.items()}
 
 
@@ -2012,18 +2014,30 @@ def _plain_step(tabs):
     return ks, square, ct_mul, rotate
 
 
-def _scan_checks(S, consts, col, val, keys) -> dict:
-    """One block through the kernels against the plain versions, exactly:
-    `keyswitch` of a reduced residue and of digits above every key
-    limb's prime (the unreduced digits the scan step feeds it), then
-    `ct_square`, `ct_mul` and `rotate`."""
+def _scan_checks(S, consts, cts_col, cts_val, keys) -> dict:
+    """The key switch at the path's shape, all the blocks of a pass, and
+    one block through the kernels, against the plain versions, exactly:
+    `keyswitch` of reduced residues and of digits above every key limb's
+    prime (the unreduced digits the scan step feeds it) on every block
+    (kernels/modops/ref.keyswitch_ref) and on one (a direct contraction),
+    then `ct_square`, `ct_mul` and `rotate`."""
+    from repro_torch.kernels.modops.ref import keyswitch_ref
+
     tabs, perm = consts["tabs"], consts["perm"]
+    col, val = cts_col[0], cts_val[0]
     ks, square, ct_mul, rotate = _plain_step(tabs)
     rlk_b, rlk_a, gk_b, gk_a = keys
-    rng = np.random.default_rng(SEED + 1)
-    big = torch.from_numpy(rng.integers(int(tabs.q.max()), 1 << 30, tuple(col.shape[1:]))).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    big = torch.randint(int(tabs.q.max()), 1 << 30, tuple(cts_col[:, 1].shape), generator=gen,
+                        device="cuda")
     errs = {}
-    for what, poly in (("reduced", col[1]), ("above_key_primes", big)):
+    for what, polys in (("reduced", cts_col[:, 1].contiguous()), ("above_key_primes", big)):
+        got, exp = S.keyswitch(polys, rlk_b, rlk_a, tabs), keyswitch_ref(polys, rlk_b, rlk_a, tabs.q)
+        errs[f"keyswitch_{what}_{polys.shape[0]}_blocks"] = max(
+            _check_equal("keyswitch", g, e, f"{what}, {polys.shape[0]} blocks")
+            for g, e in zip(got, exp))
+        del got, exp
+        poly = polys[0]
         got, exp = S.keyswitch(poly, rlk_b, rlk_a, tabs), ks(poly, rlk_b, rlk_a)
         errs[f"keyswitch_{what}"] = max(_check_equal("keyswitch", g, e, what)
                                         for g, e in zip(got, exp))
@@ -2038,15 +2052,30 @@ def _scan_checks(S, consts, col, val, keys) -> dict:
 
 def _scan_kernel_times(by_shape, tabs) -> dict:
     """mul_mod and add_mod timed at the scan path's shapes that move the
-    most bytes (launches x rows): the key switch's digit products and the
-    first round of its digit fold (`tabs`: the step's LimbTables)."""
+    most bytes (launches x rows), and keyswitch at its most launched
+    shape beside its bound and its plain version (`tabs`: the step's
+    LimbTables); a kernel the path did not launch is not timed."""
     from repro_torch.kernels.modops import ops, ref
 
     k, n = tabs.k, tabs.n
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
     q = tabs.q.to(torch.int64)[:, None]
     out = {}
+    if by_shape.get("keyswitch"):
+        (blocks, kd, kj), launches = max(by_shape["keyswitch"].items(), key=lambda kv: kv[1])
+        d = _draw_residues(gen, q, (blocks, kd, n))
+        kb, ka = (_draw_residues(gen, q, (kd, kj, n)) for _ in range(2))
+        macs = 2 * blocks * kd * kj * n
+        rec = _timed("keyswitch", lambda: ops.keyswitch(d, kb, ka, tabs)[0], d,
+                     (d.numel() + 2 * kb.numel() + 2 * blocks * kj * n) * E8,
+                     2 * macs + 6 * 2 * blocks * kj * n,
+                     plain=lambda: ref.keyswitch_ref(d, kb, ka, tabs.q)[0])
+        rec["launches_at_shape"] = launches
+        out["keyswitch"] = {f"{blocks}/{kd}/{kj}": rec}
+        del d, kb, ka
     for name, per_elem in (("mul_mod", 8), ("add_mod", 3)):
+        if not by_shape.get(name):
+            continue
         (rows, rows_b), launches = max(by_shape[name].items(), key=lambda kv: kv[0][0] * kv[1])
         a = _draw_residues(gen, q, (rows // k, k, n))
         b = _draw_residues(gen, q, (rows_b // k, k, n))
@@ -2081,7 +2110,7 @@ def phase_scan() -> tuple[dict, dict]:
     cts_col, cts_val = draw(SCAN_BLOCKS, 2), draw(SCAN_BLOCKS, 2)
     keys = [draw(cfg.k) for _ in range(4)]
     setup_s = clock() - t0
-    checks = _scan_checks(S, consts, cts_col[0], cts_val[0], keys)
+    checks = _scan_checks(S, consts, cts_col, cts_val, keys)
 
     runs, outs, launches, by_shape = {}, {}, {}, {}
     for cell in SCAN_CELLS:
@@ -2100,7 +2129,7 @@ def phase_scan() -> tuple[dict, dict]:
         shapes = modops_launches_by_shape()
         for name, n_ in counts.items():
             launches[name] = launches.get(name, 0) + n_
-        for name in ("mul_mod", "add_mod"):
+        for name in ("mul_mod", "add_mod", "keyswitch"):
             for key, n_ in shapes[name].items():
                 rows = tuple(int(x) for x in key.split("/"))
                 by_shape.setdefault(name, {})[rows] = by_shape.get(name, {}).get(rows, 0) + n_
@@ -2126,7 +2155,7 @@ def phase_scan() -> tuple[dict, dict]:
     emit("scan", rec)
     if bad or not rs_equal:
         raise AssertionError(f"scan: outputs out of range in {bad}, rs == all_gather: {rs_equal}")
-    idle = [k for k in ("mul_mod", "add_mod") if launches.get(k, 0) <= 0]
+    idle = [k for k in ("mul_mod", "add_mod", "keyswitch") if launches.get(k, 0) <= 0]
     if idle:
         raise AssertionError(f"scan launched no {idle} kernel")
     del cts_col, cts_val, keys, outs, consts, perm
@@ -2469,7 +2498,7 @@ def _mesh_scan() -> dict:
         if not equal:
             bad.append(f"scan step ({mode}): aggregate != one-device query_step")
         del local, agg
-    idle = [k for k in ("mul_mod", "add_mod") if launches.get(k, 0) <= 0]
+    idle = [k for k in ("mul_mod", "add_mod", "keyswitch") if launches.get(k, 0) <= 0]
     if idle:
         bad.append(f"scan step launched no {idle} kernel")
     return {"runs": runs, "kernel_launches": launches, "failures": bad}
@@ -2981,6 +3010,8 @@ KERNEL_META = {
     "mul_mod": ("src/repro_torch/kernels/csrc/modops.cu", "src/repro/kernels/modops/modops.py:44"),
     "add_mod": ("src/repro_torch/kernels/csrc/modops.cu", "src/repro/kernels/modops/modops.py:59"),
     "sub_mod": ("src/repro_torch/kernels/csrc/modops.cu", "src/repro/kernels/modops/modops.py:69"),
+    "keyswitch": ("src/repro_torch/kernels/csrc/modops.cu",
+                  "none: src/repro/launch/nshedb_step.py:59 keyswitch is plain array code"),
     "base_conv": ("src/repro_torch/kernels/csrc/baseconv.cu",
                   "none: src/repro/core/bfv.py:389 BFVContext._fbc is plain array code"),
     "rotate_reduce": ("src/repro_torch/kernels/csrc/rotate_reduce.cu",

@@ -5,13 +5,17 @@ plain version.  Operands broadcast against each other like tensors do;
 on the card a second operand whose shape is a trailing part of the
 result's (a key or plaintext shared by the batch) is passed as it is and
 indexed modulo its length by the kernel.
+
+`keyswitch` is the scan step's key switch: digits times two keys, summed
+over the digits, one kernel launch on the card; on other devices its
+plain version, which gives the same bits.
 """
 from __future__ import annotations
 
 import torch
 
-from .modops import add_mod_cuda, mul_mod_cuda, sub_mod_cuda
-from .ref import add_mod_ref, mul_mod_ref, sub_mod_ref
+from .modops import add_mod_cuda, keyswitch_cuda, mul_mod_cuda, sub_mod_cuda
+from .ref import add_mod_ref, keyswitch_ref, mul_mod_ref, sub_mod_ref
 
 
 def _result_shape(a, b, tabs):
@@ -56,3 +60,13 @@ def add_mod(a, b, tabs):
 
 def sub_mod(a, b, tabs):
     return _pointwise(a, b, tabs, sub_mod_cuda, sub_mod_ref)
+
+
+def keyswitch(digits, key_b, key_a, tabs, digit_bits: int | None = None):
+    """sum_i digits[..., i, :] * key[i, j, :] mod q_j for both keys:
+    (..., kd, n) int64 or int32 digits, (kd, kj, n) keys, kj = tabs.k;
+    returns the two (..., kj, n) results.  `digit_bits` bounds the
+    digits on the card (`keyswitch_cuda`)."""
+    if digits.is_cuda:
+        return keyswitch_cuda(digits, key_b, key_a, tabs, digit_bits)
+    return keyswitch_ref(digits, key_b, key_a, tabs.q)

@@ -12,6 +12,7 @@ likewise in `torch.int64`; the kernels reinterpret them as unsigned.  Tables are
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -39,6 +40,12 @@ class LimbTables:
     ninv32: torch.Tensor       # (k,)   int32
     ninv_shoup: torch.Tensor   # (k,)   int32
     mu64: torch.Tensor         # (k,)   int64, floor(2^64 / q)
+
+    @functools.cached_property
+    def q_max(self) -> int:
+        """The largest modulus, read from the device once (the key
+        switch's accumulation depth depends on it)."""
+        return int(self.q.max())
 
 
 def _bits32(x: np.ndarray, device) -> torch.Tensor:

@@ -19,16 +19,19 @@ XLA's:
                     aggregate with its limbs over "model"
   flops             integer operations: each mul_mod / add_mod call the
                     operations per element of its CUDA body
-                    (`KERNEL_OPS`) times its elements; every other
-                    arithmetic op one per output element; copies,
-                    indexing and views none
+                    (`KERNEL_OPS`) times its elements, each keyswitch
+                    call its multiply-accumulates and reductions
+                    (`KERNEL_OPS`, `MAC_OPS`); every other arithmetic
+                    op one per output element; copies, indexing and
+                    views none
   hlo_bytes         each op's inputs read once and its output written
                     once, int64: a kernel call its operands as the
                     wrapper hands them over (kernels/modops/ops.
                     kernel_operands, whose copies count as ops of
-                    their own); an input the op reads through a
-                    broadcast counted at its distinct elements; views
-                    nothing
+                    their own; a key switch's digits, int32 where a
+                    mesh gathered them, and keys as they lie); an input
+                    the op reads through a broadcast counted at its
+                    distinct elements; views nothing
   temp_bytes        the most bytes live at once in tensors the step
                     made (the arguments and the constant tables apart;
                     the collectives' results included, their
@@ -88,8 +91,12 @@ LM_SKIP = ("the training slice is ported, but the cell's parameter placements "
 #            the conditional subtraction
 #   add_mod  add_mod (u32.cuh:35-38): the sum, the compare and the
 #            conditional subtraction
+#   keyswitch  a key and an output residue: one reduction, counted as
+#            mul_mod's, and `MAC_OPS` a digit product (the wide
+#            multiply-add), as nshedb_bench/costs/keyswitch.py counts it
 # The loop's index arithmetic (modops.cu:55-56) is not counted.
-KERNEL_OPS = {"mul_mod": 6, "add_mod": 3}
+KERNEL_OPS = {"mul_mod": 6, "add_mod": 3, "keyswitch": 6}
+MAC_OPS = 2
 # ops counted one operation per output element (in place or not)
 _ARITH = frozenset({"add", "sub", "rsub", "mul", "div", "remainder", "fmod", "floor_divide",
                     "neg", "abs", "eq", "ne", "lt", "le", "gt", "ge", "where", "maximum",
@@ -182,18 +189,29 @@ class StepCounter(TorchDispatchMode):
         self.bytes += (a.numel() + b.numel() + out.numel()) * out.element_size()
         return out
 
+    def keyswitch(self, digits, key_b, key_a, tabs):
+        """A key switch as the card runs it: one launch that reads the
+        (..., kd, n) digits and both keys as they lie and writes both
+        (..., kj, n) results."""
+        out = key_b.new_empty((2, *digits.shape[:-2], tabs.k, digits.shape[-1]))
+        self.flops += (MAC_OPS * digits.shape[-2] + KERNEL_OPS["keyswitch"]) * out.numel()
+        self.bytes += sum(t.numel() * t.element_size() for t in (digits, key_b, key_a, out))
+        return out[0], out[1]
+
 
 @contextlib.contextmanager
 def _kernels_counted(counter: StepCounter):
-    """The scan step's mul_mod / add_mod calls go to `counter.kernel`
-    (the plain versions would count their own int64 ops instead)."""
-    saved = Q.mul_mod, Q.add_mod
+    """The scan step's mul_mod / add_mod calls go to `counter.kernel` and
+    its keyswitch calls to `counter.keyswitch` (the plain versions would
+    count their own int64 ops instead)."""
+    saved = Q.mul_mod, Q.add_mod, Q.keyswitch
     Q.mul_mod = lambda a, b, tabs: counter.kernel("mul_mod", a, b, tabs)
     Q.add_mod = lambda a, b, tabs: counter.kernel("add_mod", a, b, tabs)
+    Q.keyswitch = lambda poly, kb, ka, tabs, digit_bits=None: counter.keyswitch(poly, kb, ka, tabs)
     try:
         yield
     finally:
-        Q.mul_mod, Q.add_mod = saved
+        Q.mul_mod, Q.add_mod, Q.keyswitch = saved
 
 
 def meta_tables(k: int, n: int) -> LimbTables:

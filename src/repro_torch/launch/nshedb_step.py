@@ -11,23 +11,21 @@ table segment in the NTT (evaluation) domain — evaluate
                                another key-switch), then a modular sum
                                over blocks
 
-Every Barrett product goes to the `mul_mod` kernel and every modular sum
-to `add_mod` (kernels/modops) when the tensors lie on the card; on CPU
-tensors their plain versions run.  The Galois permutation is tensor
-indexing.  No NTT runs here: the step works in the evaluation domain.
+Every Barrett product goes to the `mul_mod` kernel, every modular sum to
+`add_mod` and each key switch to `keyswitch` (kernels/modops) when the
+tensors lie on the card, and to their plain versions on CPU tensors.  A
+key switch is the RNS digit-major gadget product: digit i (the residue
+of limb i, not reduced mod the output limb's prime) times key limb j mod
+q_j, summed over i, for both keys in one launch.  The Galois permutation
+is tensor indexing.  No NTT runs here: the step works in the evaluation
+domain.
 
 Layout.  A ciphertext is (2, ..., k, n) int64: component first, then any
-block axes.  A key is (k_digit, k_limb, n).  A key switch expands its
-polynomial to digit-major rows (k_digit, ..., k_limb, n): flattened, row
-r has limb r % k, which is how the modops kernel indexes its tables, so a
-one-block key (k, k, n) is a trailing part of the product and is read
-without a copy.  `query_step` runs `chunk` blocks at a time and tiles
-the keys once to (k, chunk, k, n) for them (`tile_keys`), so each digit
-product reads its key as it is and the digit fold halves the leading
-axis — contiguous halves, one add_mod launch a round for the chunk.
+block axes.  A key is (k_digit, k_limb, n), read as it lies by every
+block of a pass.  `query_step` runs `chunk` blocks at a time.
 
-Sizes.  The digit count and the block count must be powers of two: the
-halving trees raise ValueError on any other (the JAX package's trees
+Sizes.  The block count must be a power of two: the aggregation's
+halving tree raises ValueError on any other (the JAX package's trees
 drop a term there).
 
 Placement (`input_specs`, `shardings`): blocks over ("pod", "data"),
@@ -48,11 +46,12 @@ each rank holding only its shard (`shard_inputs`):
   key switch (`keyswitch_sharded`) "all_gather": the rank's digits are
             all-gathered along "model" (every output limb needs every
             digit), one (B, k, n) gather for both keys, sent as int32
-            (residues lie below q_j < 2^31) and widened back, then
-            multiplied by the key's output-limb slice and tree-folded;
-            "reduce_scatter": the rank's own digits times all k output
-            limbs, tree-folded locally, then reduce-scattered along
-            "model" to its limbs and brought below q_j;
+            (residues lie below q_j < 2^31), which the kernel reads as
+            they arrive, then multiplied by the key's output-limb slice
+            and summed over the digits; "reduce_scatter": the rank's own
+            digits times all k output limbs, summed locally, then
+            reduce-scattered along "model" to its limbs and brought below
+            q_j;
   lanes     a rank's chunk runs as two lanes of half its blocks in
             turns: the step's operations are generators that yield where
             a key switch has issued its exchange (`_interleave`), so one
@@ -84,7 +83,7 @@ from ..core.collectives import (axis_index, collective_record, gather_axis, mesh
                                 reduce_scatter_axis, sum_axis)
 from ..core.mathutil import find_ntt_primes
 from ..core.params import _make_ntt_tables
-from ..kernels.modops.ops import add_mod, mul_mod, sub_mod
+from ..kernels.modops.ops import add_mod, keyswitch, mul_mod, sub_mod
 from ..kernels.tables import LimbTables, limb_tables, slice_limbs
 from ..runtime import tracing
 from .mesh import make_query_mesh
@@ -114,44 +113,6 @@ def make_constants(cfg: NshedbConfig, device="cuda") -> dict:
 def _check_pow2(what: str, count: int) -> None:
     if count < 1 or count & (count - 1):
         raise ValueError(f"{what} must be a power of two, got {count}")
-
-
-def _tree_fold(prod, tabs: LimbTables):
-    """Halving-tree modular sum over the leading (digit) axis: log2 k
-    rounds of add_mod over the two contiguous halves."""
-    kd = prod.shape[0]
-    _check_pow2("the digit count", kd)
-    while kd > 1:
-        half = kd // 2
-        prod = add_mod(prod[:half], prod[half:kd], tabs)
-        kd = half
-    return prod[0]
-
-
-def tile_keys(keys, blocks: int) -> list:
-    """Each (k, k, n) key as (k, blocks, k, n): the layout of a
-    `blocks`-block key switch's digit products, made once per query."""
-    return [kk[:, None].expand(kk.shape[0], blocks, *kk.shape[1:]).contiguous()
-            for kk in keys]
-
-
-def keyswitch(poly, ksk_b, ksk_a, tabs: LimbTables):
-    """RNS key-switch of `poly` (..., k, n): digit-major gadget product.
-
-    Digit i (the residue of limb i, not reduced mod the output limb's
-    prime) times key limb j mod q_j, summed over i.  The key is
-    (k, k, n), or tiled to (k, *lead, k, n) by `tile_keys`.  On a mesh
-    the digits and the output limbs (`tabs.k` of them) may be different
-    slices of the base: (kd, kj, n) keys for kd digits."""
-    k = poly.shape[-2]
-    lead = poly.shape[:-2]
-    digits = poly.movedim(-2, 0).unsqueeze(-2).expand(k, *lead, tabs.k, poly.shape[-1])
-    out = []
-    for ksk in (ksk_b, ksk_a):
-        if ksk.dim() != digits.dim():
-            ksk = ksk.view(ksk.shape[0], *([1] * len(lead)), *ksk.shape[1:])
-        out.append(_tree_fold(mul_mod(digits, ksk, tabs), tabs))
-    return out[0], out[1]
 
 
 def _now(ks):
@@ -231,7 +192,7 @@ def rotate(ct, perm, gk_b, gk_a, tabs: LimbTables):
 
 
 def _scan_blocks(col, val, keys, tabs, perm, eq_levels, rot_steps, ks):
-    """One chunk's steps: col/val (2, B, k, n); keys tiled for B blocks;
+    """One chunk's steps: col/val (2, B, k, n); the four keys whole;
     `ks` a key switch's steps (`_now(keyswitch)`, or a rank's part of it
     on a mesh, `_keyswitch_sharded`)."""
     rlk_b, rlk_a, gk_b, gk_a = keys
@@ -249,8 +210,7 @@ def _scan_chunks(cts_col, cts_val, keys, tabs, perm, eq_levels, rot_steps, chunk
     """Every block through `_scan_blocks`, `chunk` at a time and `lanes`
     chunks at once (`_interleave`), then the binary-tree modular block
     aggregation: log2(nblocks) halving rounds.  `ks` is the key switch's
-    steps (`_now(keyswitch)` when None).  `keys` is consumed (the tiled
-    keys go before the aggregation)."""
+    steps (`_now(keyswitch)` when None)."""
     ks = ks or _now(keyswitch)
     nb = cts_col.shape[0]
     outs = []
@@ -261,7 +221,6 @@ def _scan_chunks(cts_col, cts_val, keys, tabs, perm, eq_levels, rot_steps, chunk
             val = cts_val[j:j + chunk].transpose(0, 1).contiguous()
             steps.append(_scan_blocks(col, val, keys, tabs, perm, eq_levels, rot_steps, ks))
         outs += [out.transpose(0, 1) for out in _interleave(steps)]
-    keys.clear()
     outs = torch.cat(outs)
     while nb > 1:
         half = nb // 2
@@ -286,18 +245,19 @@ def _mode(ks_mode):
 def default_chunk(cts, k: int) -> int:
     """Blocks per pass: all of them on the CPU; on the card the largest
     power of two whose working set fits in half the free device memory.
-    A block's working set is the four tiled keys and about four
-    digit-product buffers, 8 x (k, kl, n) int64 for the kl limbs `cts`
-    holds ((B, 2, kl, n)): kl = k on one device; on a mesh of M "model"
-    ranks kl = k / M in both key-switch modes ("all_gather": k digits by
-    k / M output limbs; "reduce_scatter": k / M digits by k, and its
-    (2, k, n) partial a block beside them).  A rank of a mesh counts its
-    own card's free memory (`rank_chunk`)."""
+    The key switch holds nothing a block beyond its (2, kl, n) result, so
+    a block's working set is the chunk's ciphertexts and the step's
+    temporaries, 16 x (kl, n) int64 for the kl limbs `cts` holds ((B, 2,
+    kl, n)), and the key switch's inputs and outputs across the whole
+    base, 2 x (k, n): kl = k on one device; on a mesh of M "model" ranks
+    kl = k / M ("all_gather": k gathered digits; "reduce_scatter": the
+    (2, k, n) partial beside them).  A rank of a mesh counts its own
+    card's free memory (`rank_chunk`)."""
     nb = cts.shape[0]
     if not cts.is_cuda:
         return nb
     free, _ = torch.cuda.mem_get_info(cts.device)
-    per_block = 8 * k * cts.shape[-2] * cts.shape[-1] * cts.element_size()
+    per_block = (16 * cts.shape[-2] + 2 * k) * cts.shape[-1] * cts.element_size()
     fit = max(1, free // 2 // per_block)
     return min(nb, 1 << (fit.bit_length() - 1))
 
@@ -338,8 +298,8 @@ def query_step(cts_col, cts_val, rlk_b, rlk_a, gk_b, gk_a, tabs: LimbTables, per
     _check_pow2("nblocks", nb)
     chunk = chunk or default_chunk(cts_col, k)
     _check_chunk(chunk, nb)
-    keys = tile_keys((rlk_b, rlk_a, gk_b, gk_a), chunk)
-    return _scan_chunks(cts_col, cts_val, keys, tabs, perm, eq_levels, rot_steps, chunk)
+    return _scan_chunks(cts_col, cts_val, (rlk_b, rlk_a, gk_b, gk_a), tabs, perm, eq_levels,
+                        rot_steps, chunk)
 
 
 # ------------------------------------------------------------- on a mesh
@@ -360,13 +320,16 @@ def _keyswitch_sharded(tabs: LimbTables, mesh, mode: str):
     local = _local_tables(tabs, mesh)
     if mesh_axes(mesh).get("model", 1) == 1:
         return _now(lambda poly, kb, ka, _tabs: keyswitch(poly, kb, ka, local))
+    # the gathered digits are residues of the whole base
+    digit_bits = tabs.q_max.bit_length() if tabs.device.type == "cuda" else None
 
     def steps(poly, ksk_b, ksk_a, _tabs):
         if mode == "all_gather":
-            # residues lie below q_j < 2^31: the digits cross as int32
+            # residues lie below q_j < 2^31: the digits cross as int32, which
+            # the kernel reads as they arrive
             pending = gather_axis(poly.to(torch.int32), mesh, "model", dim=-2, async_op=True)
             yield
-            return keyswitch(pending.wait().to(torch.int64), ksk_b, ksk_a, local)
+            return keyswitch(pending.wait(), ksk_b, ksk_a, local, digit_bits)
         both = torch.stack(keyswitch(poly, ksk_b, ksk_a, tabs))       # (2, ..., k, n)
         # each rank's fold is < q_j < 2^31, so the sum of M of them is below
         # M * 2^31: exact in int64, brought below q_j after the sum
@@ -414,9 +377,8 @@ def query_step_sharded(cts_col, cts_val, rlk_b, rlk_a, gk_b, gk_a, tabs: LimbTab
     chunk = chunk or rank_chunk(cts_col, tabs.k)
     _check_chunk(chunk, nb)
     lanes = min(LANES, chunk)
-    keys = tile_keys((rlk_b, rlk_a, gk_b, gk_a), chunk // lanes)
-    out = _scan_chunks(cts_col, cts_val, keys, local, perm, eq_levels, rot_steps,
-                       chunk // lanes, _keyswitch_sharded(tabs, mesh, mode), lanes)
+    out = _scan_chunks(cts_col, cts_val, (rlk_b, rlk_a, gk_b, gk_a), local, perm, eq_levels,
+                       rot_steps, chunk // lanes, _keyswitch_sharded(tabs, mesh, mode), lanes)
     axes = [a for a in BLOCK_AXES if mesh_axes(mesh).get(a, 1) > 1]
     for axis in axes:
         sum_axis(out, mesh, axis)

@@ -16,7 +16,7 @@ bfloat16 (outputs round at 2^-8 relative).  Sharded BFV queries on the
 card equal the unsharded run on the card, and checkpoints of CUDA
 tensors restore onto the card byte for byte.  The encrypted-scan step
 (`launch/nshedb_step.py`) on the card equals a plain int64 contraction
-and its CPU run; a 2-rank gloo mesh with CUDA tensors folds and
+and its CPU run, and its key switch kernel its plain version; a 2-rank gloo mesh with CUDA tensors folds and
 key-switches BFV micro ciphertexts as one device does, computes on BFV
 batches held sharded over it (each rank its own lanes, and on a (1, 2)
 mesh its own limbs of them) as one device does, and runs the scan step sharded over it as one device does; TPC-H Q14's
@@ -459,9 +459,10 @@ def _scan_inputs(consts, lead_list, seed):
 
 @pytest.mark.gpu
 def test_cuda_keyswitch_at_config_equals_contraction(cuda_device):
-    """One block's key switch at CONFIG (n = 32768, k = 32) through the
-    mul_mod / add_mod kernels against (poly * key mod q) summed over the
-    digits in plain int64 ops, exactly."""
+    """One block's key switch at CONFIG (n = 32768, k = 32), one launch
+    of the keyswitch kernel for both keys and no mul_mod or add_mod,
+    against (poly * key mod q) summed over the digits in plain int64
+    ops, exactly."""
     consts = nshedb_step.make_constants(CONFIG, device=cuda_device)
     poly, kb, ka = (torch.from_numpy(x).to(cuda_device)
                     for x in _scan_inputs(consts, [(), (CONFIG.k,), (CONFIG.k,)], seed=0))
@@ -469,9 +470,78 @@ def test_cuda_keyswitch_at_config_equals_contraction(cuda_device):
     kernels.reset_launch_counts()
     got = nshedb_step.keyswitch(poly, kb, ka, consts["tabs"])
     counts = kernels.launch_counts()
-    assert counts["mul_mod"] == 2 and counts["add_mod"] == 10
+    assert counts["keyswitch"] == 1 and counts["mul_mod"] == 0 and counts["add_mod"] == 0
     for g, key in zip(got, (kb, ka)):
         assert torch.equal(g, (poly[:, None] * key % q).sum(0) % q)
+
+
+def _ks_operands(device, bits, kd, kj, lead, n, digits, seed):
+    """Tables of `kj` primes of `bits` bits, (lead, kd, n) digits and two
+    (kd, kj, n) keys below their primes, the digits below the largest
+    prime ("reduced") or from [max q, 2^bits) with some at 2^bits - 1."""
+    from repro_torch.kernels.tables import limb_tables
+    primes = find_ntt_primes(n, bits, kj)
+    tabs = limb_tables(_make_ntt_tables(primes, n), device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q = tabs.q[:, None]
+    lo, hi = (0, max(primes)) if digits == "reduced" else (max(primes), 1 << bits)
+    d = torch.randint(lo, hi, tuple(lead) + (kd, n), generator=gen, device=device)
+    if digits != "reduced":
+        d.view(-1)[::7] = (1 << bits) - 1
+    keys = [torch.randint(0, 1 << 62, (kd, kj, n), generator=gen, device=device) % q
+            for _ in range(2)]
+    return tabs, d, keys
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.int64, torch.int32], ids=["int64", "int32"])
+@pytest.mark.parametrize("bits", [30, 31])
+@pytest.mark.parametrize("digits", ["reduced", "above_key_primes"])
+@pytest.mark.parametrize("kd,kj,lead,n", [(32, 16, (64,), 4096), (16, 32, (64,), 4096),
+                                          (32, 12, (3, 5), 256), (4, 4, (2,), 16)],
+                         ids=["32x16", "16x32", "lead_3x5", "n16"])
+def test_cuda_keyswitch_equals_plain_version(cuda_device, kd, kj, lead, n, digits, bits,
+                                             dtype):
+    """The keyswitch kernel against its plain version, exactly: the
+    mesh's two slices of the base (32 digits by 16 output limbs and 16 by
+    32) on 64 blocks, lead dimensions and output limbs that fill no
+    whole tile, n below a block's 32 lanes; digits up to 2^bits - 1 on
+    30- and 31-bit primes (accumulation depth 16 and 4), int64 digits
+    and int32 as a mesh gathers them."""
+    from repro_torch.kernels.modops import modops
+    from repro_torch.kernels.modops import ops as mops
+    from repro_torch.kernels.modops.ref import keyswitch_ref
+    tabs, d, keys = _ks_operands(cuda_device, bits, kd, kj, lead, n, digits, seed=kd + bits)
+    d = d.to(dtype)
+    kernels.reset_launch_counts()
+    got = mops.keyswitch(d, *keys, tabs)
+    assert kernels.launch_counts()["keyswitch"] == 1
+    assert modops.LAUNCHES_BY_SHAPE["keyswitch"] == {(int(np.prod(lead)), kd, kj): 1}
+    for g, e in zip(got, keyswitch_ref(d, *keys, tabs.q)):
+        assert g.shape == tuple(lead) + (kj, n) and torch.equal(g, e)
+
+
+@pytest.mark.gpu
+def test_cuda_keyswitch_refuses_what_it_cannot_read(cuda_device):
+    """The wrapper raises on a key that is not contiguous, of the wrong
+    shape or dtype, on digits that are not contiguous, and on more
+    digits than the kernel's shared memory holds; nothing launches."""
+    from repro_torch.kernels.modops import modops
+    tabs, d, (kb, ka) = _ks_operands(cuda_device, 30, 8, 8, (4,), 256, "reduced", seed=0)
+    kernels.reset_launch_counts()
+    bad = {"key not contiguous": (d, kb.transpose(0, 1).contiguous().transpose(0, 1), ka),
+           "key of another shape": (d, kb[:, :4].contiguous(), ka),
+           "key of another dtype": (d, kb, ka.to(torch.int32)),
+           "digits not contiguous": (d.transpose(0, 1), kb, ka)}
+    for what, args in bad.items():
+        with pytest.raises(ValueError):
+            modops.keyswitch_cuda(*args, tabs)
+    many = modops.KS_MAX_DIGITS + 1
+    with pytest.raises(ValueError, match="digits"):
+        modops.keyswitch_cuda(torch.zeros((1, many, 256), dtype=torch.int64, device=cuda_device),
+                              *(torch.zeros((many, 8, 256), dtype=torch.int64,
+                                            device=cuda_device) for _ in range(2)), tabs)
+    assert kernels.launch_counts()["keyswitch"] == 0
 
 
 @pytest.mark.gpu

@@ -265,8 +265,8 @@ def test_launch_counters_start_at_zero_and_reset():
     from repro_torch import kernels
     from repro_torch.kernels.ntt import ntt as ntt_launch
     assert set(kernels.launch_counts()) == {"ntt_fwd", "ntt_inv", "mul_mod", "add_mod",
-                                            "sub_mod", "base_conv", "rotate_reduce",
-                                            "flash_attn"}
+                                            "sub_mod", "keyswitch", "base_conv",
+                                            "rotate_reduce", "flash_attn"}
     p = make_params(n=64, t=257, k=1)
     tabs = limb_tables(p.Q, "cpu")
     before = kernels.launch_counts()
@@ -291,14 +291,86 @@ def test_modops_launches_are_counted_by_shape_and_reset():
     tabs = limb_tables(p.Q, "cpu")
     x = torch.zeros((3, 2, 64), dtype=torch.int64)
     mod_ops.mul_mod(x, x[0], tabs)                   # CPU: plain version, not counted
-    assert modops.LAUNCHES_BY_SHAPE == {"mul_mod": {}, "add_mod": {}, "sub_mod": {}}
+    mod_ops.keyswitch(x, x[:2], x[:2], tabs)
+    empty = {"mul_mod": {}, "add_mod": {}, "sub_mod": {}, "keyswitch": {}}
+    assert modops.LAUNCHES_BY_SHAPE == empty
     for rows, rows_b in ((4500, 30), (4500, 30), (150, 150)):
         modops._count("mul_mod", rows, rows_b)
     modops._count("add_mod", 300, 300)
+    modops._count("keyswitch", 64, 32, 16)
     assert modops.LAUNCHES_BY_SHAPE == {"mul_mod": {(4500, 30): 2, (150, 150): 1},
-                                        "add_mod": {(300, 300): 1}, "sub_mod": {}}
+                                        "add_mod": {(300, 300): 1}, "sub_mod": {},
+                                        "keyswitch": {(64, 32, 16): 1}}
     assert kernels.launch_counts()["mul_mod"] == 3
     assert kernels.launch_counts()["add_mod"] == 1
+    assert kernels.launch_counts()["keyswitch"] == 1
     kernels.reset_launch_counts()
-    assert modops.LAUNCHES_BY_SHAPE == {"mul_mod": {}, "add_mod": {}, "sub_mod": {}}
+    assert modops.LAUNCHES_BY_SHAPE == empty
     assert all(v == 0 for v in kernels.launch_counts().values())
+
+
+# ------------------------------------------------------------- key switch
+def _ks_base(bits: int, kj: int, n: int = 16):
+    """`kj` NTT primes of `bits` bits and their CPU tables."""
+    from repro_torch.core.params import _make_ntt_tables
+    primes = find_ntt_primes(n, bits, kj)
+    return primes, limb_tables(_make_ntt_tables(primes, n), "cpu")
+
+
+@pytest.mark.parametrize("bits", [30, 31])
+@pytest.mark.parametrize("digits", ["reduced", "above_key_primes"])
+@pytest.mark.parametrize("lead", [(), (3,), (2, 3)], ids=str)
+@pytest.mark.parametrize("kd,kj", [(32, 16), (16, 32)], ids=["32x16", "16x32"])
+def test_keyswitch_plain_version_vs_bigint(kd, kj, lead, digits, bits):
+    """The key switch's plain version (what a CPU tensor takes, and the
+    kernel's yardstick on the card) against Python big-int arithmetic:
+    sum_i d_i * K[i, j] mod q_j, digits below their own limb's prime or
+    drawn from [max q, 2^bits), at the mesh's two slices of the base."""
+    n = 16
+    primes, tabs = _ks_base(bits, kj, n)
+    rng = np.random.default_rng(kd * 100 + len(lead) + bits)
+    q_max = max(primes)
+    hi = q_max if digits == "reduced" else 1 << bits
+    lo = 0 if digits == "reduced" else q_max
+    d = rng.integers(lo, hi, lead + (kd, n))
+    keys = [np.stack([rng.integers(0, q, (kd, n)) for q in primes], axis=1) for _ in range(2)]
+    got = mod_ref.keyswitch_ref(torch.from_numpy(d), *map(torch.from_numpy, keys), tabs.q)
+    via_ops = mod_ops.keyswitch(torch.from_numpy(d), *map(torch.from_numpy, keys), tabs)
+    flat = d.reshape(-1, kd, n).tolist()
+    for g, v, key in zip(got, via_ops, keys):
+        assert g.shape == lead + (kj, n) and torch.equal(g, v)
+        kl = key.tolist()
+        exp = [[[sum(row[i][c] * kl[i][j][c] for i in range(kd)) % primes[j]
+                 for c in range(n)] for j in range(kj)] for row in flat]
+        assert g.reshape(-1, kj, n).tolist() == exp
+
+
+@pytest.mark.parametrize("bits,depth", [(30, 16), (31, 4)])
+def test_keyswitch_accumulation_depth_is_exact_and_no_deeper(bits, depth):
+    """The wrapper's rule: on a residue below q_max, `depth` products of
+    the largest digit (2^bits - 1) and the largest key residue (q_max -
+    1) sum exactly in uint64 arithmetic; one more wraps.  At the scan's
+    base (n = 32768, 32 primes) and at 31-bit primes."""
+    from repro_torch.kernels.modops import modops
+    q_max = max(find_ntt_primes(32768, bits, 32))
+    m = modops.accumulation_depth(q_max, bits)
+    assert m == depth
+    prod, wrap = ((1 << bits) - 1) * (q_max - 1), (1 << 64) - 1
+    acc = exact = q_max - 1
+    for _ in range(m):
+        acc, exact = (acc + prod) & wrap, exact + prod
+    assert acc == exact
+    assert (acc + prod) & wrap != exact + prod
+
+
+def test_keyswitch_wrapper_refuses_cpu_tensors():
+    """The launch wrapper refuses CPU tensors (the entry point gives them
+    to the plain version); its shape and layout refusals are held on the
+    card (tests/test_torch_gpu_kernels.py)."""
+    from repro_torch.kernels.modops import modops
+    _, tabs = _ks_base(30, 4)
+    d = torch.zeros((2, 8, 16), dtype=torch.int64)
+    key = torch.zeros((8, 4, 16), dtype=torch.int64)
+    with pytest.raises(ValueError, match="CUDA"):
+        modops.keyswitch_cuda(d, key, key, tabs)
+    assert all(x.shape == (2, 4, 16) for x in mod_ops.keyswitch(d, key, key, tabs))

@@ -413,3 +413,27 @@ def test_dryrun_record_scan_2m(tmp_path):
     (again,) = dryrun.main(argv + ["--skip-existing"])
     assert again["status"] == "ok" and json.loads(path.read_text())["status"] == "ok"
     assert not dist.is_initialized()
+
+
+@pytest.mark.parametrize("dtype", [torch.int64, torch.int32])
+def test_dryrun_counts_a_key_switch_as_one_kernel(dtype):
+    """The dry-run counts a key switch as the card runs it: one kernel
+    reading the digits and both keys as they lie and writing both
+    results, 2 operations a digit product and 6 a reduction (the count
+    of nshedb_bench/costs/keyswitch.py), and nothing held but the
+    results."""
+    from repro_torch.launch import nshedb_step as Q
+    lead, kd, kj, n = (4, 2), 32, 16, 64
+    tabs = dryrun.meta_tables(kj, n)
+    digits = torch.empty(*lead, kd, n, dtype=dtype, device="meta")
+    keys = [torch.empty(kd, kj, n, dtype=torch.int64, device="meta") for _ in range(2)]
+    counter = dryrun.StepCounter([digits, *keys])
+    with dryrun._kernels_counted(counter), counter:
+        out = Q.keyswitch(digits, *keys, tabs)
+    assert [tuple(o.shape) for o in out] == [(*lead, kj, n)] * 2
+    assert all(o.dtype == torch.int64 for o in out)
+    blocks = 8
+    assert counter.flops == 2 * blocks * kj * n * (2 * kd + 6)
+    assert counter.bytes == (blocks * kd * n * digits.element_size()
+                             + 8 * n * (2 * kd * kj + 2 * blocks * kj))
+    assert counter.peak_temp == 8 * 2 * blocks * kj * n

@@ -154,28 +154,34 @@ def test_lanes_take_turns_and_give_the_same_aggregate(consts, inputs, jax_query)
     assert log == [("a", 0), ("b", 0), ("a", 1), ("b", 1), ("a", 2)]
     assert T._run(lane("c", 2)) == "c"
     tc = consts[1]
-    keys = T.tile_keys(list(map(torch.from_numpy, inputs["keys"])), 2)
+    keys = list(map(torch.from_numpy, inputs["keys"]))
     got = T._scan_chunks(torch.from_numpy(inputs["col"]), torch.from_numpy(inputs["val"]), keys,
                          tc["tabs"], tc["perm"], CFG.eq_levels, CFG.rot_steps, 2, lanes=2)
     assert np.array_equal(got.numpy(), jax_query["all_gather"])
 
 
-def test_tree_fold(consts):
+@pytest.mark.parametrize("kd", [1, 3, 5])
+def test_keyswitch_any_digit_count(consts, kd):
+    """The key switch sums every digit's product, at any digit count (the
+    reference's halving tree would drop a term where kd is not a power of
+    two), from int64 or int32 digits."""
     jc, tc = consts
     q = jc["q"].astype(np.int64)[:, None]
-    prod = np.random.default_rng(6).integers(0, q, (8, CFG.k, CFG.n))
-    got = T._tree_fold(torch.from_numpy(prod), tc["tabs"])
-    assert _eq(J._tree_fold(_j(prod), jnp.asarray(jc["q"])), got)
-    assert np.array_equal(got.numpy(), prod.sum(0) % q)
+    rng = np.random.default_rng(6 + kd)
+    poly = rng.integers(0, 1 << 30, (2, kd, CFG.n))
+    kb, ka = rng.integers(0, q, (2, kd, CFG.k, CFG.n))
+    for dtype in (torch.int64, torch.int32):
+        got = T.keyswitch(torch.from_numpy(poly).to(dtype), torch.from_numpy(kb),
+                          torch.from_numpy(ka), tc["tabs"])
+        for key, out in zip((kb, ka), got):
+            exp = (poly[:, :, None] * key % q).sum(1) % q
+            assert out.dtype == torch.int64 and np.array_equal(out.numpy(), exp)
 
 
 def test_non_power_of_two_sizes_raise(consts, inputs):
     """The reference's halving trees drop a term at such sizes; the port
     refuses them."""
     tc = consts[1]
-    three = torch.zeros(3, CFG.k, CFG.n, dtype=torch.int64)
-    with pytest.raises(ValueError, match="power of two"):
-        T._tree_fold(three, tc["tabs"])
     cts = torch.from_numpy(inputs["col"][:3])
     with pytest.raises(ValueError, match="power of two"):
         T.query_step(cts, cts, *map(torch.from_numpy, inputs["keys"]), tc["tabs"],
